@@ -12,7 +12,8 @@ Phases (each raises on failure; any failure exits non-zero):
 2. kernels: run K1 (spectrogram), K2 (peak mask) and K3 (compaction) on
    the card at the main path's shapes -- ingest (8, 1,572,864) samples,
    767 frames, peak capacity 16384; clip (1, 262,144), 127 frames,
-   capacity 8192 -- and hold each against its plain PyTorch twin on the
+   capacity 8192; phase 4's 15 s clip (1, 786,432), 383 frames, capacity
+   8192 -- and hold each against its plain PyTorch twin on the
    same inputs: K1 in dB, max |diff| < 1e-3 dB with exact zeros equal
    (both compute in float64; the distance of an f32 FFT from the twin is
    printed beside it, as the gap the bound has to tell apart); K2 and K3
@@ -25,11 +26,24 @@ Phases (each raises on failure; any failure exits non-zero):
    0.1 s, and each kernel's launch counter must have risen in this phase.
    Then ``torch.profiler`` traces the first 8 clips once more, and their
    device busy time over their unprofiled wall time gives the device's
-   idle share during ``recognize_clip``.
+   idle share during ``recognize_clip``;
+4. big catalog: the same SIA ingests songs 2,035-2,713 (the reference's
+   2,714-song catalog), so that n_songs x delta_range passes
+   ``sparse_vote_threshold`` and recognition takes the sparse ranks.
+   32 seeded 15 s clips, drawn across all 2,714 songs, must be right as
+   in phase 3, with latency, peak memory and idle share measured the same
+   way, and each kernel's counter must rise in this phase. The first 8
+   clips then run again under each variant config (sort rank; scan rank
+   with blocked expansion; pruned rank with 2 candidates; decided-first
+   and bounds-first escalation on; the dense histogram), and each must
+   give the default run's song, offset, total matches and input hashes,
+   and its matched-hash count where both counted every row or both
+   stopped at the same clamp. Last, each rank alone is timed on one
+   clip's query kept on the card.
 
 It prints the card's name and power limit, build seconds, per-kernel
-times, ingest seconds and rows, clip latencies and the idle share, then
-one JSON line of per-kernel results and, last,
+times, ingest seconds and rows, clip latencies and the idle shares, then
+one JSON line of per-kernel and per-phase results and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -49,11 +63,30 @@ FS = 44100
 HOP = 2048
 INGEST_SHAPE = (8, 1_572_864, 16384, 30.0)  # batch, samples, capacity, song s
 CLIP_SHAPE = (1, 262_144, 8192, 5.0)
+BIG_CLIP_SHAPE = (1, 786_432, 8192, 15.0)   # phase 4's clips
+SHAPES = (("ingest", INGEST_SHAPE), ("clip", CLIP_SHAPE),
+          ("big_clip", BIG_CLIP_SHAPE))
 CLIP_S = 5.0
 # K1 and its plain twin both compute in float64 and round to f32 once, so
 # they may differ only by that rounding; an f32 FFT misses this by far
 K1_DB_BOUND = 1e-3
 PROFILED_CLIPS = 8
+BIG_SONGS = 2714       # the reference's recorded catalog size
+BIG_CLIP_S = 15.0      # and its clip length
+CHECKED_CLIPS = 8
+BIG_VARIANTS = (
+    ("sort", dict(vote_rank="sort")),
+    ("scan_blocked", dict(vote_rank="scan", expand_block=128,
+                          expand_block_min_capacity=0)),
+    ("pruned", dict(vote_rank="pruned")),
+    ("pruned_c2", dict(vote_rank="pruned",      # the certificate's fallback
+                       rank_candidates=2)),
+    ("decide_first", dict(bounds_probe_min_rows=1,
+                          escalation_policy="decide")),
+    ("bounds_first", dict(bounds_probe_min_rows=1,
+                          escalation_policy="bounds")),
+    ("dense", dict(sparse_vote_threshold=1 << 31)),
+)
 KERNELS = (
     ("spectrogram_power", "shazam_tpu_torch/csrc/spectrogram.cu",
      "shazam_tpu/ops/pallas/spectrogram.py:107"),
@@ -123,7 +156,7 @@ def _device_busy_ms(fn):
 
 
 def check_kernels(device) -> dict:
-    """Phase 2: each kernel against its plain twin at both main-path shapes."""
+    """Phase 2: each kernel against its plain twin at every main-path shape."""
     import torch
 
     from shazam_tpu_torch.audio import synth_song
@@ -135,8 +168,7 @@ def check_kernels(device) -> dict:
                                                   spectrogram_power_plain)
 
     out = {name: {} for name, _, _ in KERNELS}
-    for label, (bsz, n, cap, secs) in (("ingest", INGEST_SHAPE),
-                                       ("clip", CLIP_SHAPE)):
+    for label, (bsz, n, cap, secs) in SHAPES:
         x = np.zeros((bsz, n), np.float32)
         nvf = np.zeros(bsz, np.int32)
         for i in range(bsz):
@@ -198,9 +230,79 @@ def check_kernels(device) -> dict:
     return out
 
 
+def _ingest_songs(sia, ids, keep, workers):
+    """Synthesize songs ``ids`` in a process pool and ingest them in chunks
+    of 256; songs in ``keep`` are synthesized too (ingested only if in
+    ``ids``) and returned. Returns (sources, hashes, seconds inside
+    SIA.ingest_arrays, wall seconds with synthesis)."""
+    sources = {}
+    ingest = set(ids)
+    jobs = list(ids) + sorted(set(keep) - ingest)
+    t0 = time.perf_counter()
+    hashes = 0
+    sia_s = 0.0  # inside SIA.ingest_arrays; the rest is waiting on synthesis
+    ctx = mp.get_context("spawn")
+    with ctx.Pool(workers) as pool:
+        chunk = []
+        for n, (i, song) in enumerate(zip(jobs, pool.imap(_song, jobs,
+                                                           chunksize=4))):
+            if i in keep:
+                sources[i] = song
+            if i in ingest:
+                chunk.append((f"song{i:05d}", song))
+            if chunk and (len(chunk) == 256 or n == len(jobs) - 1):
+                stats = sia.ingest_arrays(chunk)
+                hashes += stats["hashes"]
+                sia_s += stats["seconds"]
+                chunk = []
+        pool.close()
+        pool.join()
+    return sources, hashes, sia_s, time.perf_counter() - t0
+
+
+def _recognize_all(sia, picks, clip_of):
+    """recognize_clip on every (song, frame) pick; returns (results,
+    latencies in s, wrong picks). Right = top-1 is the source song at
+    |offset error| < 0.1 s."""
+    results, lat, wrong = [], [], []
+    for sid, frame in picks:
+        c = clip_of(sid, frame)
+        t = time.perf_counter()
+        res = sia.recognize_clip(c)
+        lat.append(time.perf_counter() - t)
+        results.append(res)
+        top = res["results"][0] if res["results"] else None
+        if (top is None or top["song_name"] != f"song{sid:05d}"
+                or abs(top["offset_seconds"] - frame * HOP / FS) >= 0.1):
+            wrong.append((sid, frame, top))
+    return results, lat, wrong
+
+
+def _idle_share(sia, picks, clip_of, lat, on_card, label):
+    """Device busy time of the first clips, traced, over the host wall time
+    the same clips took unprofiled: (busy ms per clip, idle share), both
+    None off the card."""
+    traced = picks[:PROFILED_CLIPS]
+    busy_ms = idle = None
+    if on_card:
+        busy_ms = _device_busy_ms(
+            lambda: [sia.recognize_clip(clip_of(*p)) for p in traced])
+    wall_ms = 1e3 * sum(lat[: len(traced)])
+    if busy_ms is None:
+        print(f"{label} device busy: not measured", flush=True)
+        return None, None
+    idle = 1.0 - busy_ms / wall_ms
+    print(f"{label} device busy {busy_ms / len(traced):.3f} ms per clip "
+          f"(torch.profiler, {len(traced)} clips) over "
+          f"{wall_ms / len(traced):.3f} ms unprofiled wall: idle share "
+          f"{idle:.4f}", flush=True)
+    return busy_ms / len(traced), idle
+
+
 def end_to_end(device, n_songs: int, n_clips: int, seed: int,
-               workers: int) -> dict:
-    """Phase 3: ingest the synthetic catalog, recognize seeded clips."""
+               workers: int):
+    """Phase 3: ingest the synthetic catalog, recognize seeded clips.
+    Returns (the SIA, a report dict)."""
     import torch
 
     from shazam_tpu_torch.api import SIA
@@ -210,31 +312,13 @@ def end_to_end(device, n_songs: int, n_clips: int, seed: int,
     max_frame = (int(30.0 * FS) - clip_len) // HOP
     picks = [(int(rng.integers(n_songs)), int(rng.integers(0, max_frame + 1)))
              for _ in range(n_clips)]
-    keep = {sid for sid, _ in picks}
-    sources = {}
 
     sia = SIA(device=device)
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    hashes = 0
-    sia_s = 0.0  # inside SIA.ingest_arrays; the rest is waiting on synthesis
-    ctx = mp.get_context("spawn")
-    with ctx.Pool(workers) as pool:
-        chunk = []
-        for i, song in enumerate(pool.imap(_song, range(n_songs), chunksize=4)):
-            if i in keep:
-                sources[i] = song
-            chunk.append((f"song{i:05d}", song))
-            if len(chunk) == 256 or i == n_songs - 1:
-                stats = sia.ingest_arrays(chunk)
-                hashes += stats["hashes"]
-                sia_s += stats["seconds"]
-                chunk = []
-        pool.close()
-        pool.join()
-    ingest_s = time.perf_counter() - t0
+    sources, hashes, sia_s, ingest_s = _ingest_songs(
+        sia, range(n_songs), {sid for sid, _ in picks}, workers)
     rows = sia.index.n_hashes
     counts = sia.catalog.counts()
     if not (rows == hashes == counts["n_hashes"]
@@ -249,16 +333,7 @@ def end_to_end(device, n_songs: int, n_clips: int, seed: int,
         return sources[sid][frame * HOP: frame * HOP + clip_len]
 
     sia.recognize_clip(clip_of(*picks[0]))  # uploads the device index
-    lat, wrong = [], []
-    for sid, frame in picks:
-        c = clip_of(sid, frame)
-        t = time.perf_counter()
-        res = sia.recognize_clip(c)
-        lat.append(time.perf_counter() - t)
-        top = res["results"][0] if res["results"] else None
-        if (top is None or top["song_name"] != f"song{sid:05d}"
-                or abs(top["offset_seconds"] - frame * HOP / FS) >= 0.1):
-            wrong.append((sid, frame, top))
+    _results, lat, wrong = _recognize_all(sia, picks, clip_of)
     print(f"recognize_clip: {n_clips} clips of {CLIP_S} s, p50 "
           f"{1e3 * float(np.median(lat)):.3f} ms, max "
           f"{1e3 * max(lat):.3f} ms, wrong {len(wrong)}", flush=True)
@@ -267,36 +342,187 @@ def end_to_end(device, n_songs: int, n_clips: int, seed: int,
     peak_mib = (torch.cuda.max_memory_allocated() / 2**20 if on_card
                 else None)
     print(f"peak device memory allocated: {peak_mib} MiB", flush=True)
+    busy, idle = _idle_share(sia, picks, clip_of, lat, on_card,
+                             "recognize_clip")
+    return sia, {"songs": n_songs, "rows": rows, "ingest_wall_s": ingest_s,
+                 "ingest_s": sia_s,
+                 "clip_p50_ms": 1e3 * float(np.median(lat)),
+                 "clip_max_ms": 1e3 * max(lat), "peak_device_mib": peak_mib,
+                 "clip_device_busy_ms": busy, "clip_idle_share": idle}
 
-    # idle share: device busy time of the first clips, traced, over the
-    # host wall time the same clips took above without the profiler
-    traced = picks[:PROFILED_CLIPS]
-    busy_ms = idle = None
+
+def _answer(res):
+    top = res["results"][0] if res["results"] else {}
+    return {"song_id": top.get("song_id"), "offset": top.get("offset"),
+            "matched": top.get("hashes_matched_in_input"),
+            "partial": res["partial_counts"],
+            "total_matches": res["total_matches"],
+            "input_hashes": res["input_hashes"]}
+
+
+def _same_answer(want, got) -> bool:
+    """Song, offset, total matches and input hashes equal, and the
+    matched hash count where both runs counted every row or both accepted
+    a clamped expansion as provably decided (partial_counts: a variant
+    that decides at the default's fast tier with its row-by-row expansion
+    excludes the same runs). A decided run against an exact one reports
+    a lower bound, which may not exceed the exact count."""
+    keys = ("song_id", "offset", "total_matches", "input_hashes")
+    if any(want[k] != got[k] for k in keys):
+        return False
+    if want["partial"] != got["partial"]:
+        lower, exact = ((want, got) if want["partial"] else (got, want))
+        return lower["matched"] <= exact["matched"]
+    return want["matched"] == got["matched"]
+
+
+def _match_half(sia, clip, on_card) -> dict:
+    """The match half alone at this catalog size: each rank on one clip's
+    query, fingerprinted once and kept on the card. Per call: CUDA-event
+    ms over 10 back-to-back calls (host enqueue included, since the path
+    is launch-bound) and the device-busy ms of a profiled call."""
+    from shazam_tpu_torch.match.lookup import match_by_rank
+    from shazam_tpu_torch.match.ondevice import fingerprint_probe_on_device
+
+    index = sia._ensure_device_index()
+    x, nv = sia._to_device(clip)
+    q, *_ = fingerprint_probe_on_device(x, nv, index, **sia._fp_kwargs(),
+                                        query_capacity=4096)
+    delta_min, delta_range = sia._delta_params_for(len(clip))
+    kw = dict(n_songs=sia.index.n_songs, delta_min=delta_min,
+              delta_range=delta_range, topn=sia.config.topn)
+    fast = sia.config.match_capacity_fast
+    paths = {f"{rank} {fast}": dict(rank=rank, match_capacity=fast,
+                                    n_candidates=256)
+             for rank in ("pruned", "sort", "scan", "dense")}
+    paths["scan blocked 65536"] = dict(rank="scan", match_capacity=65536,
+                                       expand_block=128, expand_runs=1024)
+    out = {}
+    for name, kw_rank in paths.items():
+        def fn(kw_rank=kw_rank):
+            return match_by_rank(index, *q, **kw_rank, **kw)
+
+        fn()
+        if not on_card:
+            print(f"match half {name}: not measured", flush=True)
+            continue
+        ms = _event_ms(fn)
+        busy = _device_busy_ms(fn)
+        out[name] = {"ms": ms, "device_busy_ms": busy}
+        print(f"match half {name}: {ms:.4f} ms per call (CUDA events), "
+              f"device busy {busy:.4f} ms", flush=True)
+    return out
+
+
+def big_catalog(sia, n_base: int, n_total: int, n_clips: int, n_check: int,
+                seed: int, workers: int) -> dict:
+    """Phase 4: grow the phase-3 catalog to ``n_total`` songs, past
+    ``sparse_vote_threshold``, and recognize seeded BIG_CLIP_S clips
+    through the sparse ranks; then re-run the first ``n_check`` clips
+    under each rank / expansion / escalation variant and require the
+    default run's answers."""
+    import dataclasses
+
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    clip_len = int(BIG_CLIP_S * FS)
+    max_frame = (int(30.0 * FS) - clip_len) // HOP
+    picks = [(int(rng.integers(n_total)), int(rng.integers(0, max_frame + 1)))
+             for _ in range(n_clips)]
+
+    on_card = sia.device.type == "cuda"
     if on_card:
-        busy_ms = _device_busy_ms(
-            lambda: [sia.recognize_clip(clip_of(*p)) for p in traced])
-    wall_ms = 1e3 * sum(lat[: len(traced)])
-    if busy_ms is not None:
-        idle = 1.0 - busy_ms / wall_ms
-        print(f"recognize_clip device busy {busy_ms / len(traced):.3f} ms per "
-              f"clip (torch.profiler, {len(traced)} clips) over "
-              f"{wall_ms / len(traced):.3f} ms unprofiled wall: idle share "
-              f"{idle:.4f}", flush=True)
-    else:
-        print("recognize_clip device busy: not measured", flush=True)
-    return {"songs": n_songs, "rows": rows, "ingest_wall_s": ingest_s,
-            "ingest_s": sia_s,
+        torch.cuda.reset_peak_memory_stats()
+    sources, hashes, sia_s, ingest_s = _ingest_songs(
+        sia, range(n_base, n_total), {sid for sid, _ in picks}, workers)
+    rows = sia.index.n_hashes
+    counts = sia.catalog.counts()
+    if counts["n_songs"] != n_total or counts["n_hashes"] != rows:
+        raise AssertionError(f"catalog {counts}, index rows {rows}")
+    index = sia._ensure_device_index()
+    index_mb = sum(t.numel() * t.element_size()
+                   for t in (index.key64, index.key_sub, index.payload)) / 1e6
+    _, delta_range = sia._delta_params_for(clip_len)
+    bins = sia.index.n_songs * delta_range
+    threshold = sia.config.sparse_vote_threshold
+    print(f"big catalog: +{n_total - n_base} songs ({hashes} hashes) to "
+          f"{n_total} songs, {rows} rows, {index_mb:.1f} MB device index, "
+          f"wall {ingest_s:.3f} s with synthesis, {sia_s:.3f} s in "
+          f"SIA.ingest_arrays; vote bins {sia.index.n_songs} x "
+          f"{delta_range} = {bins} > sparse_vote_threshold {threshold}",
+          flush=True)
+    if bins <= threshold:
+        raise AssertionError(f"{bins} vote bins do not pass the sparse "
+                             f"threshold {threshold}")
+
+    def clip_of(sid, frame):
+        return sources[sid][frame * HOP: frame * HOP + clip_len]
+
+    sia.recognize_clip(clip_of(*picks[0]))  # warm-up
+    # the phase's peak (as phase 3), then recognition's own: during this
+    # phase's ingest the phase-3 device index is still resident
+    peak_mib = rec_peak_mib = None
+    if on_card:
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+    results, lat, wrong = _recognize_all(sia, picks, clip_of)
+    two_pass = sum(r["query_time"] > 0 for r in results)
+    partial = sum(r["partial_counts"] for r in results)
+    print(f"big recognize_clip: {n_clips} clips of {BIG_CLIP_S} s, p50 "
+          f"{1e3 * float(np.median(lat)):.3f} ms, max "
+          f"{1e3 * max(lat):.3f} ms, wrong {len(wrong)}, handed to "
+          f"recognize_samples {two_pass}, decided under a clamp {partial}, "
+          f"median total matches "
+          f"{int(np.median([r['total_matches'] for r in results]))}",
+          flush=True)
+    if wrong:
+        raise AssertionError(f"big catalog, wrong top-1: {wrong[:5]}")
+    if on_card:
+        peak_mib = max(peak_mib, torch.cuda.max_memory_allocated() / 2**20)
+        rec_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    print(f"big catalog peak device memory allocated: {peak_mib} MiB "
+          f"(recognition alone {rec_peak_mib} MiB)", flush=True)
+    busy, idle = _idle_share(sia, picks, clip_of, lat, on_card,
+                             "big recognize_clip")
+
+    base = sia.config
+    want = [_answer(r) for r in results[:n_check]]
+    variants = {}
+    try:
+        for name, kw in BIG_VARIANTS:
+            sia.config = dataclasses.replace(base, **kw)
+            got, vlat, _ = _recognize_all(sia, picks[:n_check], clip_of)
+            variants[name] = 1e3 * float(np.median(vlat))
+            print(f"variant {name}: p50 {variants[name]:.3f} ms over "
+                  f"{n_check} clips, handed to recognize_samples "
+                  f"{sum(r['query_time'] > 0 for r in got)}, decided under "
+                  f"a clamp {sum(r['partial_counts'] for r in got)}",
+                  flush=True)
+            bad = [(p, a, b) for p, a, b in zip(picks, want, map(_answer, got))
+                   if not _same_answer(a, b)]
+            if bad:
+                raise AssertionError(f"variant {name} differs: {bad[:3]}")
+    finally:
+        sia.config = base
+    match_half = _match_half(sia, clip_of(*picks[0]), on_card)
+    return {"songs": n_total, "rows": rows, "index_mb": index_mb,
+            "vote_bins": bins, "ingest_wall_s": ingest_s, "ingest_s": sia_s,
             "clip_p50_ms": 1e3 * float(np.median(lat)),
-            "clip_max_ms": 1e3 * max(lat), "peak_device_mib": peak_mib,
-            "clip_device_busy_ms": (None if busy_ms is None
-                                    else busy_ms / len(traced)),
-            "clip_idle_share": idle}
+            "clip_max_ms": 1e3 * max(lat), "two_pass_clips": two_pass,
+            "partial_count_clips": partial, "peak_device_mib": peak_mib,
+            "recognize_peak_device_mib": rec_peak_mib,
+            "clip_device_busy_ms": busy,
+            "clip_idle_share": idle, "variant_p50_ms": variants,
+            "match_half": match_half}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--songs", type=int, default=2035)
     ap.add_argument("--clips", type=int, default=32)
+    ap.add_argument("--big-songs", type=int, default=BIG_SONGS)
+    ap.add_argument("--big-clips", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -325,15 +551,24 @@ def main(argv=None) -> int:
 
     wrappers = {"spectrogram_power": spectrogram.KERNEL,
                 "peak_mask": peaks.KERNEL, "compact": compact.KERNEL}
-    for k in wrappers.values():
-        k.launches = 0
-    e2e = end_to_end(device, args.songs, args.clips, args.seed,
-                     os.cpu_count() or 1)
-    launches = {name: k.launches for name, k in wrappers.items()}
-    print(f"launches: {launches}", flush=True)
-    idle = [name for name, n in launches.items() if n == 0]
-    if idle:
-        raise AssertionError(f"kernels not launched by the main path: {idle}")
+    workers = os.cpu_count() or 1
+
+    def launched(label, phase):
+        for k in wrappers.values():
+            k.launches = 0
+        out = phase()
+        counts = {name: k.launches for name, k in wrappers.items()}
+        print(f"launches ({label}): {counts}", flush=True)
+        idle = [name for name, n in counts.items() if n == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched by {label}: {idle}")
+        return out, counts
+
+    (sia, e2e), launches = launched("main path", lambda: end_to_end(
+        device, args.songs, args.clips, args.seed, workers))
+    big, launches_big = launched("big catalog", lambda: big_catalog(
+        sia, args.songs, args.big_songs, args.big_clips, CHECKED_CLIPS,
+        args.seed, workers))
 
     report = []
     for name, source, replaces in KERNELS:
@@ -341,11 +576,15 @@ def main(argv=None) -> int:
         report.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(m["ingest"]["err"], m["clip"]["err"]),
+            "launches_big_catalog": launches_big[name],
+            "max_abs_err": max(m[label]["err"] for label, _ in SHAPES),
             "ms": m["ingest"]["ms"], "plain_ms": m["ingest"]["plain_ms"],
             "clip_ms": m["clip"]["ms"], "clip_plain_ms": m["clip"]["plain_ms"],
+            "big_clip_ms": m["big_clip"]["ms"],
+            "big_clip_plain_ms": m["big_clip"]["plain_ms"],
         })
-    print(json.dumps({"kernels": report, "end_to_end": e2e}), flush=True)
+    print(json.dumps({"kernels": report, "end_to_end": e2e,
+                      "big_catalog": big}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

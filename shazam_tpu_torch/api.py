@@ -8,14 +8,19 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   its sorted run into the host index. A song becomes durable only after
   its hashes are merged (the reference's set_song_fingerprinted rule).
 - ``SIA.recognize_clip``: one mono clip through fingerprint, on-device
-  dedup, dense match and rank with a single read-back, falling back to
+  dedup, match and rank with a single read-back, falling back to
   ``recognize_samples`` (two passes, capacity tiers) when a static
   capacity overflowed and the clamped answer is not provably exact.
+- Past ``config.sparse_vote_threshold`` vote bins both paths take the
+  sparse ranks (``config.vote_rank``), and on indexes of at least
+  ``config.bounds_probe_min_rows`` rows the big-index escalation policy
+  (``config.escalation_policy``): decided-first, one dispatch at the
+  decide tier that keeps its search bounds for a fitted re-dispatch, or
+  bounds-first, an exact-total probe and one fitted dispatch.
 - ``save_index``/``load_index``: the JAX package's flat ``.npz`` format.
 
-Not ported yet: the sparse/pruned vote ranks past
-``config.sparse_vote_threshold`` (calls raise NotImplementedError there),
-the device-resident and spanned stores, batch/serve, streaming, apriori.
+Not ported yet: the device-resident and spanned stores, the unique-view
+search, batch/serve, streaming, apriori.
 
 Shapes are bucketed (padded to the next 2^18-sample multiple), as in the
 JAX package, so both packages see the same frame counts.
@@ -36,8 +41,8 @@ from .device import resolve_device
 from .index.catalog import SongCatalog
 from .index.store import DeviceIndex, FingerprintIndex, build_index, merge_into
 from .match.align import align_results
-from .match.lookup import match_query, raw_to_host
-from .match.ondevice import recognize_on_device
+from .match.lookup import match_by_rank, query_total, raw_to_host
+from .match.ondevice import fingerprint_probe_on_device, recognize_on_device
 from .match.prepare import prepare_query, q_frames_for_max_offset
 from .ops.fingerprint import Fingerprints, fingerprint_batch_fused, union_pairs
 
@@ -66,6 +71,10 @@ class SIA:
         self.catalog.delete_unfingerprinted()  # reference crash recovery
         self.index = index or build_index([], n_songs=0)
         self._max_off = 0
+        # self-tuning decide tier (config.decide_adapt_window): [attempts,
+        # undecided] over the current window, and the accumulated boost
+        self._decide_stats = [0, 0]
+        self._decide_boost = 0
 
     @property
     def index(self) -> FingerprintIndex:
@@ -206,14 +215,8 @@ class SIA:
         q_frames = q_frames_for_max_offset(n_frames - 1)
         return -q_frames, self._max_off + 2 * q_frames
 
-    def _dense_n_songs(self, delta_range: int) -> int:
-        n_songs = max(self.index.n_songs, 1)
-        if n_songs * delta_range > self.config.sparse_vote_threshold:
-            raise NotImplementedError(
-                f"{n_songs} songs x {delta_range} delta bins exceeds "
-                f"sparse_vote_threshold {self.config.sparse_vote_threshold}: "
-                "the sparse vote matchers are not ported yet")
-        return n_songs
+    def _n_songs(self) -> int:
+        return max(self.index.n_songs, 1)
 
     def _to_device(self, samples: np.ndarray):
         """(1, bucketed) f32 clip and its (1,) valid length on the device."""
@@ -280,39 +283,121 @@ class SIA:
         }
 
     def _match_prepared(self, q, n_samples: int, topn: Optional[int] = None):
-        """Dense match of prepared query pairs with capacity tiers; returns
-        (host RawMatch, capacity actually used).
+        """Match prepared query pairs with capacity tiers; returns (host
+        RawMatch, capacity actually used).
 
         The fast tier covers typical queries; a clamped result is kept when
         provably exact (``_decided``), else the query re-runs once at the
-        tier its exact total fits.
+        tier its exact total fits. Past ``sparse_vote_threshold`` the
+        sparse ranks replace the dense histogram, and on big indexes
+        (``bounds_probe_min_rows``) the escalation policy decides the
+        first dispatch: decided-first runs at the decide tier and keeps its
+        search bounds, bounds-first probes the exact total and dispatches
+        once at the tier it fits. Either way a re-dispatch reuses the
+        bounds instead of searching again.
         """
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(n_samples)
-        n_songs = self._dense_n_songs(delta_range)
+        n_songs = self._n_songs()
         q_dev = [torch.from_numpy(a.astype(np.int64)).to(self.device)
                  for a in (q.hi, q.lo, q.ex, q.t)]
         q_dev += [torch.from_numpy(a).to(self.device) for a in (q.valid, q.first)]
         caps = self._match_tiers()
+        use_sparse = n_songs * delta_range > self.config.sparse_vote_threshold
+        eblk = self._expand_block_for(index)
+        bounds = None   # an earlier search's (lb, ub), on the device
 
-        def run(cap):
-            raw, _ = raw_to_host(match_query(
-                index, *q_dev, n_songs=n_songs, delta_min=delta_min,
+        def run(cap, blk=None, with_bounds=False):
+            out = match_by_rank(
+                index, *q_dev,
+                rank=self._rank_for(cap) if use_sparse else "dense",
+                n_songs=n_songs, delta_min=delta_min,
                 delta_range=delta_range, match_capacity=cap,
-                topn=topn or self.config.topn))
-            return raw
+                topn=topn or self.config.topn,
+                n_candidates=self.config.rank_candidates,
+                expand_block=(self._eblk_for_cap(eblk, cap) if blk is None
+                              else blk),
+                expand_runs=self.config.expand_block_runs, bounds=bounds,
+                with_bounds=with_bounds)
+            if with_bounds:
+                raw, lb, ub = out
+                return raw_to_host(raw)[0], (lb, ub)
+            return raw_to_host(out)[0]
 
-        cap = caps[0]
-        raw = run(cap)
-        total = int(raw.total_rows)  # exact even when clamped
+        total = None
+        big = use_sparse and self._big_index(index)
+        if big and self._decide_first():
+            cap = self._decide_cap(caps)
+            raw, bounds = run(cap, with_bounds=True)
+            clamped = raw.total_rows > cap or raw.n_dropped > 0
+            self._decide_record(1, int(clamped and not self._decided(raw)))
+        elif big:
+            total_d, lb, ub = query_total(index, q_dev[0], q_dev[1],
+                                          q_dev[2], q_dev[4], with_bounds=True)
+            total = int(total_d)
+            bounds = (lb, ub)
+            cap = next((c for c in caps if c >= total), caps[-1])
+            raw = run(cap)
+        else:
+            cap = caps[0]
+            raw = run(cap)
+        if total is None:
+            total = int(raw.total_rows)  # exact even when clamped
         if total > cap or raw.n_dropped > 0:
+            # n_dropped > 0 with total <= cap comes only from the blocked
+            # expansion's nonempty-run budget (expand_block_runs)
             if self._decided(raw):
                 return raw, max(total, cap)
-            fit = next((c for c in caps if c >= total), caps[-1])
-            if fit != cap:
-                cap = fit
-                raw = run(cap)
+            if total > cap:
+                fit = next((c for c in caps if c >= total), caps[-1])
+                if fit != cap:      # not already at the last tier
+                    cap = fit
+                    raw = run(cap)
+            if eblk and raw.n_dropped > 0 and total <= cap:
+                # more nonempty runs than expand_block_runs: no tier cures
+                # that, the row-by-row expansion is the exact fallback
+                raw = run(cap, blk=0)
         return raw, cap
+
+    def _big_index(self, index: DeviceIndex) -> bool:
+        """The index is at least ``bounds_probe_min_rows`` rows (0: never),
+        where the escalation policy chooses the first dispatch."""
+        rows = self.config.bounds_probe_min_rows
+        return bool(rows) and self._index_rows(index) >= rows
+
+    def _decide_first(self) -> bool:
+        pol = self.config.escalation_policy
+        return pol == "decide" or (pol == "auto"
+                                   and self.config.decision_escalation)
+
+    def _rank_for(self, cap: int) -> str:
+        """config.vote_rank for a capacity tier: "auto" is sort at the fast
+        tier and scan above it. (The JAX package's "auto" takes the pruned
+        rank at the fast tier, a TPU choice; every rank gives the same
+        answer, and on the H100 the pruned rank's eager form runs the sort
+        rank as well, for its fallback.)"""
+        v = self.config.vote_rank
+        if v == "auto":
+            return ("sort" if cap <= self.config.match_capacity_fast
+                    else "scan")
+        return v
+
+    def _eblk_for_cap(self, eblk: int, cap: int) -> int:
+        """Blocked expansion only from expand_block_min_capacity on: below
+        it the run budget's 2 * expand_block_runs * B slots outweigh the
+        tier's own capacity."""
+        return eblk if cap >= self.config.expand_block_min_capacity else 0
+
+    @staticmethod
+    def _index_rows(index: DeviceIndex) -> int:
+        """Row capacity of the device index (real and padding rows)."""
+        return int(index.payload.shape[0])
+
+    def _expand_block_for(self, index: DeviceIndex) -> int:
+        """config.expand_block where the device rows split into whole
+        blocks (they are padded to a multiple of 512), else 0."""
+        blk = self.config.expand_block
+        return blk if blk and self._index_rows(index) % blk == 0 else 0
 
     def _decided(self, raw) -> bool:
         """True iff a capacity-clamped host RawMatch is provably the full
@@ -333,6 +418,35 @@ class SIA:
             caps.append(min(caps[-1] * step, self.config.match_capacity_max))
         return caps
 
+    def _decide_cap(self, caps: List[int]) -> int:
+        """The decided-first dispatch tier: config.decide_capacity (0: the
+        match_capacity tier) raised by the boost ``_decide_record`` has
+        accumulated, never past decide_adapt_max unless asked for."""
+        want = self.config.decide_capacity or self.config.match_capacity
+        idx = next((i for i, c in enumerate(caps) if c >= want),
+                   len(caps) - 1)
+        idx = min(idx + self._decide_boost, len(caps) - 1)
+        while (idx > 0 and caps[idx] > self.config.decide_adapt_max
+               and caps[idx] > want):
+            idx -= 1
+        return caps[idx]
+
+    def _decide_record(self, attempts: int, undecided: int) -> None:
+        """Self-tuning decide tier: over each decide_adapt_window of
+        decided-first dispatches, an undecided share above 1/2 raises the
+        tier one step (corpora with long hyper-common runs need a larger
+        run budget before margins certify)."""
+        w = self.config.decide_adapt_window
+        if not w:
+            return
+        self._decide_stats[0] += attempts
+        self._decide_stats[1] += undecided
+        if self._decide_stats[0] >= w:
+            a, u = self._decide_stats
+            self._decide_stats = [0, 0]
+            if u * 2 > a:
+                self._decide_boost += 1
+
     def recognize_clip(self, samples: np.ndarray,
                        topn: Optional[int] = None) -> Dict:
         """Lowest-latency recognition of one mono clip.
@@ -340,8 +454,11 @@ class SIA:
         Fingerprint, on-device dedup, match and rank run on the device
         with one read-back at the end; results equal
         ``recognize_samples([samples])``. A clip that overflows the peak
-        capacity or the query lanes, or whose fast-tier match clamped
-        without being provably decided, goes to ``recognize_samples``.
+        capacity or the query lanes, or whose match clamped without being
+        provably decided, goes to ``recognize_samples``. On a big index
+        (sparse ranks and ``bounds_probe_min_rows``) decided-first runs
+        the same single pass at the decide tier; bounds-first goes to
+        ``_recognize_clip_probed``.
         """
         t0 = time.time()
         samples = np.asarray(samples)
@@ -351,18 +468,30 @@ class SIA:
             return self.recognize_samples([samples], topn=topn)
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(len(samples))
-        n_songs = self._dense_n_songs(delta_range)
+        n_songs = self._n_songs()
         # dedup-sort + search cost is linear in query lanes: a 5 s clip
         # yields ~1-2K unique pairs
         q_cap = 2048 if len(samples) <= 6 * self.config.sample_rate else 4096
         one_cap = self.config.match_capacity_fast
+        if (n_songs * delta_range > self.config.sparse_vote_threshold
+                and self._big_index(index)):
+            if not self._decide_first():
+                return self._recognize_clip_probed(
+                    samples, index, n_songs=n_songs, delta_min=delta_min,
+                    delta_range=delta_range, q_cap=q_cap, topn=topn, t0=t0)
+            one_cap = self._decide_cap(self._match_tiers())
         x, nv = self._to_device(samples)
         raw, n_pairs, n_peaks, n_hashes = recognize_on_device(
             x, nv, index, **self._fp_kwargs(), n_songs=n_songs,
             delta_min=delta_min, delta_range=delta_range,
             match_capacity=one_cap, topn=topn or self.config.topn,
             query_capacity=q_cap,
-            sparse_threshold=self.config.sparse_vote_threshold)
+            rank_candidates=self.config.rank_candidates,
+            sparse_threshold=self.config.sparse_vote_threshold,
+            vote_rank=self._rank_for(one_cap),
+            expand_block=self._eblk_for_cap(self._expand_block_for(index),
+                                            one_cap),
+            expand_runs=self.config.expand_block_runs)
         raw, (n_pairs, n_peaks, n_hashes) = raw_to_host(
             raw, n_pairs, n_peaks, n_hashes)
         device_time = time.time() - t0
@@ -371,11 +500,61 @@ class SIA:
                     and not self._decided(raw))
                 or n_hashes > q_cap):
             return self.recognize_samples([samples], topn=topn)
+        return self._clip_result(raw, n_pairs, max(raw.total_rows, one_cap),
+                                 device_time)
 
+    def _recognize_clip_probed(self, samples: np.ndarray,
+                               index: DeviceIndex, *, n_songs: int,
+                               delta_min: int, delta_range: int, q_cap: int,
+                               topn: Optional[int], t0: float) -> Dict:
+        """Bounds-first recognition of one clip on a big index: fingerprint
+        + dedup + exact-total probe, one read-back, then one match at the
+        tier the total fits, on the query still on the device and with the
+        probe's search bounds."""
+        x, nv = self._to_device(samples)
+        q_dev, *counts, lb, ub = fingerprint_probe_on_device(
+            x, nv, index, **self._fp_kwargs(), query_capacity=q_cap)
+        counts = torch.stack([c.to(torch.int64) for c in counts]).cpu()
+        n_pairs, n_peaks, n_hashes, total = (int(v) for v in counts)
+        if n_peaks > self.config.peak_capacity or n_hashes > q_cap:
+            # capacity overflow (peaks or query lanes): the two-pass path
+            # escalates those capacities
+            return self.recognize_samples([samples], topn=topn)
+
+        caps = self._match_tiers()
+        cap = next((c for c in caps if c >= total), caps[-1])
+        eblk = self._expand_block_for(index)
+
+        def run(blk):
+            # n_candidates=0: "pruned" takes the sort rank here, as in the
+            # JAX package's probed path
+            return raw_to_host(match_by_rank(
+                index, *q_dev, rank=self._rank_for(cap), n_songs=n_songs,
+                delta_min=delta_min, delta_range=delta_range,
+                match_capacity=cap, topn=topn or self.config.topn,
+                n_candidates=0, expand_block=blk,
+                expand_runs=self.config.expand_block_runs,
+                bounds=(lb, ub)))[0]
+
+        raw = run(self._eblk_for_cap(eblk, cap))
+        if raw.n_dropped > 0 and not self._decided(raw) and total <= cap:
+            # a run-budget drop: the row-by-row expansion is the exact
+            # fallback (total > cap is a clamp at the last tier, which the
+            # align capacity below reports)
+            raw = run(0)
+        device_time = time.time() - t0
+        # max(total, cap) reads "unaffected by capacity": only for an exact
+        # (or provably decided) result; a last-tier clamp keeps cap so
+        # align_results flags the overflow
+        exact = total <= cap and raw.n_dropped == 0
+        align_cap = max(total, cap) if exact or self._decided(raw) else cap
+        return self._clip_result(raw, n_pairs, align_cap, device_time)
+
+    def _clip_result(self, raw, n_pairs: int, align_cap: int,
+                     device_time: float) -> Dict:
         t0 = time.time()
-        matched = align_results(
-            raw, n_pairs, catalog=self.catalog, config=self.config,
-            match_capacity=max(raw.total_rows, one_cap))
+        matched = align_results(raw, n_pairs, catalog=self.catalog,
+                                config=self.config, match_capacity=align_cap)
         align_time = time.time() - t0
         return {
             "results": matched.results,
@@ -383,7 +562,7 @@ class SIA:
             "overflowed": matched.overflowed,
             "partial_counts": matched.partial_counts,
             "input_hashes": n_pairs,
-            "fingerprint_time": device_time,  # one device pass
+            "fingerprint_time": device_time,  # the device pass(es)
             "query_time": 0.0,
             "align_time": align_time,
             "total_time": device_time + align_time,

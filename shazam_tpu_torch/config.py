@@ -4,9 +4,9 @@ Each field has the name and default of the same field of
 ``shazam_tpu.config.FingerprintConfig`` (a test holds them equal). The
 port does not import that class: ``chip_smoke.py`` drives the port on
 the card and imports nothing of the JAX package, so neither may the port.
-Only the fields the port honours are here; the JAX package's big-catalog
-matcher, serving and layout knobs have no counterpart yet, and a field
-that the port would silently ignore is left out.
+Only the fields the port honours are here; the JAX package's serving,
+streaming and layout knobs have no counterpart yet, and a field that the
+port would silently ignore is left out.
 """
 
 from __future__ import annotations
@@ -40,10 +40,37 @@ class FingerprintConfig:
     # provably-exact early accept of a clamped expansion (see
     # match.lookup.RawMatch): top1 - strongest challenger > n_dropped
     decision_escalation: bool = True
+    # --- big catalogs (past sparse_vote_threshold); every rank and
+    # expansion variant gives element-identical results ---
+    # candidate songs of the pruned rank (0: always the sort rank)
+    rank_candidates: int = 256
+    # sparse rank: "pruned", "sort", "scan", or "auto" = sort at the fast
+    # tier and scan above it (the JAX package's "auto" is pruned at the
+    # fast tier)
+    vote_rank: str = "auto"
+    # blocked expansion width (0: row by row), used from
+    # expand_block_min_capacity on, with a budget of expand_block_runs
+    # nonempty runs (more are dropped into n_dropped; 0: every lane)
+    expand_block: int = 128
+    expand_block_min_capacity: int = 65536
+    expand_block_runs: int = 1024
+    # indexes of at least this many rows take escalation_policy (0: never)
+    bounds_probe_min_rows: int = 1 << 25
+    # "decide": one dispatch at the decide tier, accepted when provably
+    # decided, else one fitted re-dispatch reusing its search bounds;
+    # "bounds": an exact-total probe, then one dispatch at the fitting
+    # tier; "auto": "decide" when decision_escalation is True
+    escalation_policy: str = "auto"
+    # the decide tier (0: match_capacity); it rises one step after a
+    # window of decide_adapt_window dispatches that were mostly undecided
+    # (0: never), up to decide_adapt_max
+    decide_capacity: int = 0
+    decide_adapt_window: int = 64
+    decide_adapt_max: int = 524288
     # capacity tiers grow x4 up to this, x2 after
     match_tier_fine_from: int = 262144
     # past n_songs * delta_range vote bins the dense histogram gives way to
-    # the sparse matchers (not ported yet: the port raises there)
+    # the sparse ranks
     sparse_vote_threshold: int = 16_000_000
     # --- matching / results ---
     topn: int = 2                     # TOPN (recognizer.py:68)
@@ -55,6 +82,14 @@ class FingerprintConfig:
             raise ValueError("overlap_ratio must be in [0, 1)")
         if self.fan_value < 1:
             raise ValueError("fan_value must be >= 1")
+        if self.vote_rank not in ("auto", "pruned", "sort", "scan"):
+            raise ValueError(
+                f"vote_rank {self.vote_rank!r} not in "
+                "('auto', 'pruned', 'sort', 'scan')")
+        if self.escalation_policy not in ("auto", "decide", "bounds"):
+            raise ValueError(
+                f"escalation_policy {self.escalation_policy!r} not in "
+                "('auto', 'decide', 'bounds')")
 
     @property
     def hop(self) -> int:

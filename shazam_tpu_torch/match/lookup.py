@@ -1,4 +1,4 @@
-"""Query matching: index lookup + dense offset-delta histogram voting.
+"""Query matching: index lookup + offset-delta vote + rank.
 
 Replaces the reference's batched ``WHERE hash IN`` round trips
 (``recognizer.py:222-271``), per-row vote expansion and the groupby
@@ -8,13 +8,24 @@ ops that never sync the host:
 1. ``lexi_bounds`` gives each query (hash, offset) pair its row run
    [lb, ub) in the sorted index;
 2. runs are included whole, shortest first, into a fixed-capacity vote
-   list (a slot maps back to its run by a marks + prefix sum);
-3. votes add into a dense (n_songs, delta_range) histogram; per-song best
-   delta = first argmax (smallest delta), ranking = stable descending
-   sort (ties to the smallest song id), the reference's tie rules.
+   list (a slot maps back to its run by a marks + prefix sum), row by row
+   or, with ``expand_block``, as aligned blocks of the payload;
+3. votes are counted and ranked with the reference's tie rules (per-song
+   best delta = smallest delta among the maxima, ranking ties to the
+   smallest song id) by one of the element-identical ranks:
 
-The dense branch only: past ``sparse_vote_threshold`` vote bins the JAX
-package switches to sparse matchers, which are not ported yet.
+   - dense: a (n_songs, delta_range) histogram (``match_query``);
+   - sort: sort the packed (song, delta) keys, run-length count them and
+     reduce per song with scatters (``_sparse_vote_rank``);
+   - scan: the same sort, then cumulative scans instead of scatters
+     (``_scan_vote_rank``);
+   - pruned: hashed per-song vote upper bounds pick candidate songs, a
+     dense histogram over those only, and a certificate that selects the
+     sort rank when it cannot prove the result (``match_query_pruned``).
+
+The JAX package switches from dense to the others past
+``config.sparse_vote_threshold`` vote bins; so does the port, and every
+caller picks one by name through ``match_by_rank``.
 """
 
 from __future__ import annotations
@@ -26,6 +37,10 @@ import torch
 
 from ..index.search import lexi_bounds
 from ..index.store import DeviceIndex
+
+_SENT = 0x7FFFFFFF     # int32 max: sorts after every packed vote key
+_M32 = 0xFFFFFFFF
+_FIB = 0x9E3779B1      # Fibonacci multiplicative hash constant
 
 
 def check_vote_key(n_songs: int, delta_range: int) -> None:
@@ -59,18 +74,64 @@ class RawMatch(NamedTuple):
     runner_votes: object  # strongest challenger's count
 
 
+def _scatter(size: int, idx, src, reduce: str, fill: int = 0):
+    """``jnp.zeros(size).at[idx].<reduce>(src, mode="drop")``: indices
+    outside [0, size) land in one extra dump slot that is cut off."""
+    dev = src.device
+    out = torch.full((size + 1,), fill, dtype=torch.int64, device=dev)
+    safe = torch.where((idx >= 0) & (idx < size), idx, size)
+    if reduce == "sum":
+        out.index_add_(0, safe, src.to(torch.int64))
+    else:
+        out.scatter_reduce_(0, safe, src.to(torch.int64), reduce=reduce,
+                            include_self=True)
+    return out[:size]
+
+
+def _desc(values):
+    """(values, indices) in ``lax.top_k`` order: descending, ties to the
+    smallest index."""
+    return torch.sort(values, descending=True, stable=True)
+
+
+def _at(x, i):
+    """``x[i]`` for a 0-dim index tensor ``i`` without a host sync (a 0-dim
+    tensor index is read back with ``.item()``; a 1-element one is not)."""
+    return x[i.reshape(1)][0]
+
+
+def _zero(like):
+    """An int64 0 on ``like``'s device, filled there (a Python scalar
+    turned into a CUDA tensor is a synchronous host-to-device copy)."""
+    return torch.zeros((), dtype=torch.int64, device=like.device)
+
+
+def _bounds(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid, bounds):
+    if bounds is not None:
+        return bounds
+    return lexi_bounds(index, q_hi, q_lo, q_ex, q_valid)
+
+
 def _expand(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, *,
-            match_capacity: int):
+            match_capacity: int, expand_block: int = 0,
+            expand_runs: int = 0, bounds=None):
     """Search + fixed-capacity row expansion.
 
     Returns (sid, delta, p, valid, total, n_dropped) per vote slot: song
     id, offset delta, owning query lane, validity, the exact total match
     count (even when the budget clamps) and the number of excluded runs.
     Whole runs are included shortest-first (stable: equal lengths keep
-    lane order) until the budget is spent.
+    lane order) until the budget is spent. ``bounds`` reuses an earlier
+    search's per-lane (lb, ub); ``expand_block`` reads the rows as
+    aligned blocks (``_blocked_expand``).
     """
-    lb, ub = lexi_bounds(index, q_hi, q_lo, q_ex, q_valid)
+    lb, ub = _bounds(index, q_hi, q_lo, q_ex, q_valid, bounds)
     lens = torch.where(q_valid, ub - lb, 0)
+    if expand_block:
+        return _blocked_expand(index, lb, ub, lens, q_t,
+                               block_size=expand_block,
+                               match_capacity=match_capacity,
+                               max_runs=expand_runs)
     total = lens.sum()
     n_lanes = lens.shape[0]
 
@@ -99,6 +160,81 @@ def _expand(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, *,
     sid = packed // index.stride
     delta = packed % index.stride - q_t.to(torch.int64)[p]
     return sid, delta, p, valid, total, n_dropped
+
+
+def _blocked_expand(index: DeviceIndex, lb, ub, lens, q_t, *,
+                    block_size: int, match_capacity: int, max_runs: int = 0):
+    """``_expand``'s contract, reading whole aligned ``block_size``-row
+    blocks of the payload (its (N/B, B) view) instead of single rows.
+
+    Runs are included whole, shortest-first in block units, while both
+    the block budget ``match_capacity // B + 2 * R`` (alignment wastes at
+    most two partial blocks per run) and the row budget
+    ``match_capacity`` hold, where ``R = min(n_lanes, max_runs or
+    n_lanes)``; nonempty runs past the shortest-first ``R`` are dropped
+    too. Every excluded run counts in ``n_dropped``, so "total <=
+    capacity and nonempty runs <= R => nothing dropped" holds, and
+    included live rows never exceed ``match_capacity`` (the ranks sort
+    and keep that prefix). Returns arrays of ``cap_blocks * B`` slots;
+    ``p`` is constant within each block.
+    """
+    B = block_size
+    payload = index.payload
+    if payload.shape[0] % B:
+        raise ValueError(
+            f"payload rows {payload.shape[0]} not a multiple of the block "
+            f"size {B}")
+    total = lens.sum()
+    b0 = lb // B
+    b1 = (ub + B - 1) // B
+    nblk = torch.where(lens > 0, b1 - b0, 0)
+
+    order = torch.argsort(nblk, stable=True)   # shortest-first, in blocks
+    nblk_s = nblk[order]
+    b0_s = b0[order]
+    n_runs = lens.shape[0]
+    runs_budget = min(n_runs, max_runs) if max_runs else n_runs
+    cap_blocks = match_capacity // B + 2 * runs_budget
+    nonempty = nblk_s > 0
+    included = ((torch.cumsum(nblk_s, 0) <= cap_blocks)
+                & (torch.cumsum(lens[order], 0) <= match_capacity))
+    if runs_budget < n_runs:
+        included &= torch.cumsum(nonempty.long(), 0) <= runs_budget
+    n_dropped = (nonempty & ~included).sum()
+    cum_inc = torch.cumsum(torch.where(included, nblk_s, 0), 0)
+    total_blocks = cum_inc[-1]
+
+    dev = lens.device
+    in_range = cum_inc < cap_blocks
+    marks = torch.zeros(cap_blocks, dtype=torch.int64, device=dev)
+    marks.index_add_(0, torch.where(in_range, cum_inc, 0), in_range.long())
+    pb = torch.clamp(torch.cumsum(marks, 0), max=n_runs - 1)
+    prev = torch.where(pb > 0, cum_inc[torch.clamp(pb - 1, min=0)], 0)
+    v = torch.arange(cap_blocks, device=dev)
+    blk = b0_s[pb] + (v - prev)
+    blk_valid = v < total_blocks
+    run = order[pb]                            # owning run (= lane)
+
+    safe_blk = torch.where(blk_valid, blk, 0)
+    rows = payload.view(-1, B)[safe_blk]
+    g = safe_blk[:, None] * B + torch.arange(B, device=dev)[None, :]
+    valid = (blk_valid[:, None] & (g >= lb[run][:, None])
+             & (g < ub[run][:, None]))
+    sid = torch.where(valid, rows // index.stride, 0)
+    delta = torch.where(
+        valid, rows % index.stride - q_t.to(torch.int64)[run][:, None], 0)
+    p = run[:, None].expand(cap_blocks, B)
+    return (sid.reshape(-1), delta.reshape(-1), p.reshape(-1),
+            valid.reshape(-1), total, n_dropped)
+
+
+def _take_first(q_first, p, expand_block: int):
+    """``q_first[p]`` over the vote stream: one gather per block when the
+    stream is blocked (``p`` is constant within a block)."""
+    if expand_block and p.shape[0] % expand_block == 0:
+        pair_blk = p.view(-1, expand_block)[:, 0]
+        return q_first[pair_blk][:, None].expand(-1, expand_block).reshape(-1)
+    return q_first[p]
 
 
 def match_local(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, q_first,
@@ -133,10 +269,10 @@ def rank_votes(hist, rows_hist, total, *, delta_min: int, topn: int,
     best_bin = torch.argmax(hist, dim=1)  # first max => smallest delta
     # stable descending sort: equal votes keep ascending song order,
     # the smallest-index tie rule of lax.top_k
-    order = torch.sort(votes, descending=True, stable=True).indices
+    vals, order = _desc(votes)
     k = min(topn, votes.shape[0])
     top_songs = order[:k]
-    top_votes = votes[top_songs]
+    top_votes = vals[:k]
     if k < topn:
         pad = torch.zeros(topn - k, dtype=top_songs.dtype, device=votes.device)
         top_songs = torch.cat([top_songs, pad])
@@ -147,10 +283,10 @@ def rank_votes(hist, rows_hist, total, *, delta_min: int, topn: int,
 
     # strongest challenger: the 2nd-ranked song, and the winner's own
     # 2nd-best delta bin (a tie within the song makes the delta fragile)
-    second_song = votes[order[1]] if votes.shape[0] > 1 else votes.new_zeros(())
-    top_row = hist[top_songs[0]]
+    second_song = vals[1] if votes.shape[0] > 1 else votes.new_zeros(())
+    top_row = _at(hist, top_songs[0])
     bins = torch.arange(top_row.shape[0], device=hist.device)
-    second_bin = torch.where(bins == best_bin[top_songs[0]], -1,
+    second_bin = torch.where(bins == _at(best_bin, top_songs[0]), -1,
                              top_row).max()
     runner = torch.maximum(second_song, second_bin)
     if n_dropped is None:
@@ -177,10 +313,369 @@ def match_query(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, q_first,
                       n_dropped=n_dropped)
 
 
-def query_total(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid) -> torch.Tensor:
-    """Exact total matched-row count of a query: one search, no expansion."""
+def _sparse_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
+                      n_songs: int, delta_min: int, delta_range: int,
+                      topn: int, prefix: int = 0) -> RawMatch:
+    """Sort + run-length vote count + rank over flat expanded vote slots,
+    with no (n_songs, delta_range) table: O(stream) work plus two
+    O(n_songs) arrays. ``prefix``: every live key of a blocked stream
+    sorts into its first ``prefix`` slots, so the passes after the sort
+    run there."""
+    cap = sid.shape[0]
+    dbin = delta - delta_min
+    vote_ok = valid & (dbin >= 0) & (dbin < delta_range)
+
+    key = torch.where(vote_ok, sid * delta_range + dbin, _SENT)
+    ks = torch.sort(key).values
+    if prefix and prefix < cap:
+        ks = ks[:prefix]
+        cap = prefix
+    live = ks != _SENT
+    change = torch.ones_like(live)
+    change[1:] = ks[1:] != ks[:-1]
+    run_start = live & change
+    seg_id = torch.cumsum(run_start.long(), 0) - 1
+    safe_seg = torch.where(live, seg_id, cap - 1)
+    counts_seg = _scatter(cap, safe_seg, live, "sum")
+    key_seg = _scatter(cap, safe_seg, torch.where(live, ks, _SENT), "amin",
+                       fill=_SENT)
+
+    seg_live = key_seg != _SENT
+    song_seg = torch.where(seg_live, key_seg // delta_range, n_songs)
+    dbin_seg = torch.where(seg_live, key_seg % delta_range, 0)
+
+    votes_per_song = _scatter(n_songs, song_seg, counts_seg, "amax")
+    back = votes_per_song[torch.clamp(song_seg, max=n_songs - 1)]
+    is_best = seg_live & (counts_seg == back)
+    best_bin = _scatter(n_songs, song_seg,
+                        torch.where(is_best, dbin_seg, _SENT), "amin",
+                        fill=_SENT)
+    rows_hist = _scatter(n_songs, sid, valid & first, "sum")
+
+    k = min(topn, n_songs)
+    vals, order = _desc(votes_per_song)
+    top_votes, top_songs = vals[:k], order[:k]
+    if k < topn:
+        top_votes = torch.cat([top_votes, top_votes.new_zeros(topn - k)])
+        top_songs = torch.cat([top_songs, top_songs.new_zeros(topn - k)])
+    bb = best_bin[top_songs]
+    # zero-vote songs (catalogs smaller than topn): the dense argmax
+    # gives bin 0 -> delta_min; mirror it
+    top_deltas = torch.where(bb == _SENT, 0, bb) + delta_min
+    row_counts = rows_hist[top_songs]
+    n_ranked = (votes_per_song > 0).sum()
+
+    # strongest challenger (see rank_votes): the 2nd-ranked song and the
+    # winner's 2nd-best delta bin, from the same segment arrays
+    second_song = vals[1] if n_songs >= 2 else _zero(sid)
+    win = top_songs[0]
+    is_second = (song_seg == win) & (dbin_seg != _at(best_bin, win))
+    second_bin = torch.where(is_second, counts_seg, 0).max()
+    runner = torch.maximum(second_song, second_bin)
+    if n_dropped is None:
+        n_dropped = _zero(sid)
+    return RawMatch(top_songs, top_deltas, top_votes, row_counts, total,
+                    n_ranked, n_dropped, runner)
+
+
+def _scan_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
+                    n_songs: int, delta_min: int, delta_range: int,
+                    topn: int, prefix: int = 0) -> RawMatch:
+    """Scatter-free vote rank: one sort + cumulative scans, element-
+    identical to ``_sparse_vote_rank``.
+
+    1. sort the packed vote keys (``song * dr2 + dbin``, ``dr2`` the
+       delta range rounded up to a power of two while the key fits
+       int32: order-preserving, so every value is the same); invalid
+       slots carry the sentinel and sort to the tail;
+    2. a run's vote count is the distance to the next key boundary: a
+       reverse cumulative minimum over (boundary ? index : cap);
+    3. sorted order is the tie rule: the first position of the largest
+       count is the smallest (song, dbin) holding it. Top-n repeats the
+       argmax, masking each chosen song;
+    4. dedup row counts, the challenger and the ranked-song count are
+       masked reductions over the stream.
+    """
+    cap = sid.shape[0]
+    dbin = delta - delta_min
+    # song ids outside [0, n_songs) are non-votes: the scatter ranks drop
+    # them, here they would form live runs
+    vote_ok = (valid & (dbin >= 0) & (dbin < delta_range)
+               & (sid >= 0) & (sid < n_songs))
+    dr2 = 1 << max(int(delta_range) - 1, 0).bit_length()
+    if n_songs * dr2 >= 1 << 31:
+        dr2 = delta_range
+
+    key = torch.where(vote_ok, sid * dr2 + dbin, _SENT)
+    ks = torch.sort(key).values
+    if prefix and prefix < cap:
+        ks = ks[:prefix]
+        cap = prefix
+    live = ks != _SENT                      # a contiguous prefix
+    idx = torch.arange(cap, device=ks.device)
+    change = torch.ones_like(live)
+    change[1:] = ks[1:] != ks[:-1]
+
+    # next boundary strictly after i: reverse cummin of (change ? idx :
+    # cap), shifted left one -- run [i, nxt[i]) for every run start i
+    cand = torch.where(change, idx, cap)
+    nxt_incl = torch.cummin(cand.flip(0), 0).values.flip(0)
+    nxt = torch.cat([nxt_incl[1:], nxt_incl.new_full((1,), cap)])
+    run_start = change & live
+    count = torch.where(run_start, nxt - idx, 0)
+    song = torch.where(live, ks // dr2, n_songs)
+    db = ks % dr2
+
+    k = min(topn, n_songs)
+    zero = _zero(sid)
+    tops, topd, topv = [], [], []
+    masked = count
+    for r in range(k):
+        pos = torch.argmax(masked)          # first max: the tie rule
+        v = _at(masked, pos)
+        got = v > 0
+        # zero-vote slots mirror top_k over an all-zero tail: the smallest
+        # song id not chosen yet, at delta_min; each bump can collide with
+        # an earlier winner, so re-scan until stable
+        fallback = zero
+        for _ in range(max(1, len(tops))):
+            for prev in tops:
+                fallback = torch.where(fallback == prev, fallback + 1,
+                                       fallback)
+        s_r = torch.where(got, _at(song, pos), fallback)
+        tops.append(s_r)
+        topd.append(torch.where(got, _at(db, pos), 0) + delta_min)
+        topv.append(torch.clamp(v, min=0))
+        if r + 1 < k:
+            masked = torch.where(song == s_r, 0, masked)
+    # dedup row counts of the reported songs (valid & first, not in-range:
+    # mirrors rows_hist), over the unsorted stream
+    vf = (valid & first).long()
+    rcs = [torch.where(sid == s, vf, 0).sum() for s in tops]
+
+    if k < topn:
+        # catalogs smaller than topn: the sort rank pads with song 0 and
+        # gathers song 0's best delta and row count for the padding
+        pos0 = torch.argmax(torch.where(song == 0, count, -1))
+        d0 = torch.where(_at(count, pos0) > 0, _at(db, pos0), 0) + delta_min
+        rc0 = torch.where(sid == 0, vf, 0).sum()
+        for _ in range(topn - k):
+            tops.append(zero)
+            topd.append(d0)
+            topv.append(zero)
+            rcs.append(rc0)
+    top_songs = torch.stack(tops)
+    top_deltas = torch.stack(topd)
+
+    song_change = torch.ones_like(live)
+    song_change[1:] = song[1:] != song[:-1]
+    n_ranked = (run_start & song_change).sum()
+
+    # strongest challenger (see rank_votes)
+    win = top_songs[0]
+    second_song = (torch.clamp(torch.where(song == win, 0, count).max(),
+                               min=0) if n_songs >= 2 else zero)
+    win_runs = run_start & (song == win) & (db != top_deltas[0] - delta_min)
+    second_bin = torch.where(win_runs, count, 0).max()
+    runner = torch.maximum(second_song, second_bin)
+    if n_dropped is None:
+        n_dropped = zero
+    return RawMatch(top_songs, top_deltas, torch.stack(topv),
+                    torch.stack(rcs), total, n_ranked, n_dropped, runner)
+
+
+def _rank_by_name(vote_rank: str):
+    """The element-identical sparse ranks by name: "sort" or "scan"."""
+    if vote_rank == "sort":
+        return _sparse_vote_rank
+    if vote_rank == "scan":
+        return _scan_vote_rank
+    raise ValueError(f"unknown vote_rank {vote_rank!r} "
+                     "(expected 'sort' or 'scan')")
+
+
+def match_query_sparse(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
+                       q_first, *, n_songs: int, delta_min: int,
+                       delta_range: int, match_capacity: int = 65536,
+                       topn: int = 2, expand_block: int = 0,
+                       expand_runs: int = 0, vote_rank: str = "sort",
+                       bounds=None, with_bounds: bool = False):
+    """``match_query`` without the dense histogram, for big catalogs:
+    element-identical, with O(match_capacity) work.
+
+    ``with_bounds=True`` also returns the per-lane search (lb, ub),
+    computed once and shared with the expansion, so that a re-dispatch at
+    a larger capacity can pass them back as ``bounds`` and skip the
+    search.
+    """
+    check_vote_key(n_songs, delta_range)
+    if with_bounds:
+        bounds = _bounds(index, q_hi, q_lo, q_ex, q_valid, bounds)
+    sid, delta, p, valid, total, n_dropped = _expand(
+        index, q_hi, q_lo, q_ex, q_t, q_valid, match_capacity=match_capacity,
+        expand_block=expand_block, expand_runs=expand_runs, bounds=bounds)
+    first = _take_first(q_first, p, expand_block)
+    raw = _rank_by_name(vote_rank)(
+        sid, delta, first, valid, total, n_dropped, n_songs=n_songs,
+        delta_min=delta_min, delta_range=delta_range, topn=topn,
+        prefix=match_capacity if expand_block else 0)
+    if with_bounds:
+        return raw, bounds[0], bounds[1]
+    return raw
+
+
+def _pruned_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
+                      n_songs: int, delta_min: int, delta_range: int,
+                      topn: int, n_candidates: int):
+    """Candidate-pruned dense vote rank. Returns (RawMatch, rank_exact).
+
+    1. votes go into a hashed (song, delta) bin table of >= 16x the
+       stream length; collisions only add, so the largest hashed count
+       among a song's rows bounds its true best-bin votes from above;
+    2. the top ``n_candidates`` songs by that bound are kept; an excluded
+       song's votes are at most ``excluded_max``, the largest excluded
+       bound;
+    3. an exact dense (C, delta_range) histogram over the candidates;
+    4. the certificate: ``excluded_max == 0`` (every excluded song has no
+       vote), or strictly below the reported topn-th count and <= the
+       runner, means no excluded song could enter the top-n or change the
+       challenger, so the result equals the sort rank's. Otherwise
+       ``rank_exact`` is False and the result must not be used.
+    """
+    dev = sid.device
+    cap = sid.shape[0]
+    dbin = delta - delta_min
+    vote_ok = valid & (dbin >= 0) & (dbin < delta_range)
+
+    # Fibonacci hash of the uint32 flat key into 2^m buckets, in int64:
+    # the 32-bit product is split in 16-bit halves so nothing overflows
+    m = min(24, max(18, (cap * 16 - 1).bit_length()))
+    flat_key = (sid * delta_range + dbin) & _M32
+    prod = ((flat_key & 0xFFFF) * _FIB
+            + ((((flat_key >> 16) * _FIB) & 0xFFFF) << 16)) & _M32
+    bucket = torch.where(vote_ok, prod >> (32 - m), -1)
+    hashed = _scatter(1 << m, bucket, vote_ok, "sum")
+    row_ub = hashed[torch.clamp(bucket, min=0)]
+    ub_song = _scatter(n_songs, sid, torch.where(vote_ok, row_ub, 0), "amax")
+
+    C = min(n_candidates, n_songs)
+    if n_songs > C:
+        cr, cs = _desc(ub_song)
+        cand_songs = cs[:C]
+        excluded_max = cr[C]
+    else:
+        cand_songs = torch.arange(C, device=dev)
+        excluded_max = _zero(sid)
+
+    slots = torch.arange(C, device=dev)
+    cand_slot = torch.full((n_songs,), C, dtype=torch.int64, device=dev)
+    cand_slot[cand_songs] = slots
+    cslot = cand_slot[torch.clamp(sid, max=n_songs - 1)]
+    live = vote_ok & (cslot < C)
+    flat = torch.where(live, cslot * delta_range + dbin, 0)
+    hist = torch.zeros(C * delta_range, dtype=torch.int64, device=dev)
+    hist.index_add_(0, flat, live.long())
+    hist = hist.view(C, delta_range)
+
+    # candidate results back onto song ids: top-k ties then go to the
+    # smallest song id, not the candidate slot order
+    votes_full = torch.zeros(n_songs, dtype=torch.int64, device=dev)
+    votes_full[cand_songs] = hist.max(dim=1).values
+    best_bin_full = torch.zeros(n_songs, dtype=torch.int64, device=dev)
+    best_bin_full[cand_songs] = torch.argmax(hist, dim=1)
+    rows_hist = _scatter(n_songs, sid, valid & first, "sum")
+
+    k = min(topn, n_songs)
+    vals, order = _desc(votes_full)
+    top_votes, top_songs = vals[:k], order[:k]
+    if k < topn:
+        top_votes = torch.cat([top_votes, top_votes.new_zeros(topn - k)])
+        top_songs = torch.cat([top_songs, top_songs.new_zeros(topn - k)])
+    # zero-vote songs report delta_min (best_bin_full is 0 there)
+    top_deltas = best_bin_full[top_songs] + delta_min
+    row_counts = rows_hist[top_songs]
+    n_ranked = (ub_song > 0).sum()   # > 0 iff the song has an in-range vote
+
+    second_song = vals[1] if n_songs >= 2 else _zero(sid)
+    win = top_songs[0]
+    top_row = _at(hist, torch.clamp(_at(cand_slot, win), max=C - 1))
+    bins = torch.arange(delta_range, device=dev)
+    second_bin = torch.where(bins == _at(best_bin_full, win), -1,
+                             top_row).max()
+    runner = torch.maximum(second_song, second_bin)
+    if n_dropped is None:
+        n_dropped = _zero(sid)
+
+    rank_exact = (excluded_max == 0) | (
+        (excluded_max < top_votes[k - 1]) & (excluded_max <= runner))
+    raw = RawMatch(top_songs, top_deltas, top_votes, row_counts, total,
+                   n_ranked, n_dropped, runner)
+    return raw, rank_exact
+
+
+def match_query_pruned(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
+                       q_first, *, n_songs: int, delta_min: int,
+                       delta_range: int, match_capacity: int = 65536,
+                       topn: int = 2, n_candidates: int = 256,
+                       expand_block: int = 0, expand_runs: int = 0,
+                       bounds=None):
+    """``match_query_sparse`` with the candidate-pruned rank; always
+    element-identical to it. Returns (RawMatch, rank_exact).
+
+    The JAX package picks the pruned result or the sort-rank fallback with
+    ``lax.cond`` inside one program. Eager PyTorch cannot branch on a
+    device value without a host sync, so both ranks run over the same
+    expansion and each field is selected by ``rank_exact`` on the device.
+    """
+    check_vote_key(n_songs, delta_range)
+    sid, delta, p, valid, total, n_dropped = _expand(
+        index, q_hi, q_lo, q_ex, q_t, q_valid, match_capacity=match_capacity,
+        expand_block=expand_block, expand_runs=expand_runs, bounds=bounds)
+    first = _take_first(q_first, p, expand_block)
+    kw = dict(n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
+              topn=topn)
+    raw_p, ok = _pruned_vote_rank(sid, delta, first, valid, total, n_dropped,
+                                  n_candidates=n_candidates, **kw)
+    raw_s = _sparse_vote_rank(sid, delta, first, valid, total, n_dropped, **kw)
+    return RawMatch(*(torch.where(ok, a, b) for a, b in zip(raw_p, raw_s))), ok
+
+
+def match_by_rank(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
+                  q_first, *, rank: str, n_songs: int, delta_min: int,
+                  delta_range: int, match_capacity: int = 65536,
+                  topn: int = 2, n_candidates: int = 0,
+                  expand_block: int = 0, expand_runs: int = 0, bounds=None,
+                  with_bounds: bool = False):
+    """One match dispatch by rank name, the choice every caller makes:
+    "dense" (the histogram), "pruned" (the candidate-pruned rank when
+    ``n_candidates > 0`` and no bounds are asked back, else the sort rank
+    it always equals), "sort" or "scan". Returns a RawMatch, followed by
+    the search (lb, ub) when ``with_bounds``."""
+    q = (q_hi, q_lo, q_ex, q_t, q_valid, q_first)
+    kw = dict(n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
+              match_capacity=match_capacity, topn=topn)
+    if rank == "dense":
+        return match_query(index, *q, **kw)
+    if rank == "pruned" and n_candidates > 0 and not with_bounds:
+        return match_query_pruned(
+            index, *q, n_candidates=n_candidates, expand_block=expand_block,
+            expand_runs=expand_runs, bounds=bounds, **kw)[0]
+    return match_query_sparse(
+        index, *q, vote_rank="sort" if rank == "pruned" else rank,
+        expand_block=expand_block, expand_runs=expand_runs, bounds=bounds,
+        with_bounds=with_bounds, **kw)
+
+
+def query_total(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid, *,
+                with_bounds: bool = False):
+    """Exact total matched-row count of a query: one search, no expansion.
+    ``with_bounds=True`` also returns the per-lane (lb, ub) for a later
+    match to reuse as ``bounds``."""
     lb, ub = lexi_bounds(index, q_hi, q_lo, q_ex, q_valid)
-    return torch.where(q_valid, ub - lb, 0).sum()
+    total = torch.where(q_valid, ub - lb, 0).sum()
+    if with_bounds:
+        return total, lb, ub
+    return total
 
 
 def raw_to_host(raw: RawMatch, *extra: torch.Tensor):

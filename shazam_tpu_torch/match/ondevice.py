@@ -9,7 +9,11 @@ everything on the device and reads back once:
    invalid lanes forced to the max key, then first-occurrence masks for
    unique (hash, offset) pairs and unique hashes (the reference's
    Python-set + mapper, ``recognizer.py:237-242,378-382``),
-3. match + vote + rank against the device index (dense branch).
+3. match + vote + rank against the device index: the dense histogram, or
+   past ``sparse_threshold`` vote bins one of the sparse ranks.
+
+``fingerprint_probe_on_device`` runs steps 1-2 and the exact-total
+search instead of step 3, for the bounds-first escalation policy.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from ..index.search import query_key64
 from ..index.store import DeviceIndex
 from ..ops.fingerprint import Fingerprints, fingerprint_batch_fused
-from .lookup import match_query
+from .lookup import match_by_rank, query_total
 
 _M32 = 0xFFFFFFFF
 
@@ -70,25 +74,48 @@ def recognize_fingerprints(fp: Fingerprints, index: DeviceIndex, *,
                            n_songs: int, delta_min: int, delta_range: int,
                            match_capacity: int = 16384, topn: int = 2,
                            query_capacity: int = 4096,
-                           sparse_threshold: int = 16_000_000):
-    """Dedup + dense match of one clip's fingerprints (batch of 1).
+                           rank_candidates: int = 0,
+                           sparse_threshold: int = 16_000_000,
+                           vote_rank: str = "pruned", expand_block: int = 0,
+                           expand_runs: int = 0):
+    """Dedup + match of one clip's fingerprints (batch of 1).
 
-    Returns (RawMatch, n_pairs, n_peaks, n_hashes_total), all tensors on
-    the device. The caller checks n_hashes_total against query_capacity
-    and n_peaks against the peak capacity.
+    Past ``sparse_threshold`` vote bins, ``vote_rank`` picks the sparse
+    rank: "pruned" (when ``rank_candidates > 0``; "sort" otherwise),
+    "sort" or "scan". Returns (RawMatch, n_pairs, n_peaks,
+    n_hashes_total), all tensors on the device. The caller checks
+    n_hashes_total against query_capacity and n_peaks against the peak
+    capacity.
     """
-    if n_songs * delta_range > sparse_threshold:
-        raise NotImplementedError(
-            f"n_songs * delta_range = {n_songs * delta_range} exceeds "
-            f"sparse_vote_threshold {sparse_threshold}: the sparse vote "
-            "matchers are not ported yet")
     (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
      n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
-    raw = match_query(index, sort_hi, lo, ex, t1, q_valid, q_first,
-                      n_songs=n_songs, delta_min=delta_min,
-                      delta_range=delta_range, match_capacity=match_capacity,
-                      topn=topn)
+    raw = match_by_rank(
+        index, sort_hi, lo, ex, t1, q_valid, q_first,
+        rank=("dense" if n_songs * delta_range <= sparse_threshold
+              else vote_rank),
+        n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
+        match_capacity=match_capacity, topn=topn,
+        n_candidates=rank_candidates, expand_block=expand_block,
+        expand_runs=expand_runs)
     return raw, n_pairs, fp.n_peaks[0], n_hashes_total
+
+
+def _fingerprint_clip(samples: torch.Tensor, n_valid: torch.Tensor, *,
+                      fs: int, wsize: int, hop: int, amp_min: float,
+                      radius: int, fan_value: int, min_dt: int, max_dt: int,
+                      peak_capacity: int) -> Fingerprints:
+    """The fused fingerprint of a (1, N) clip, refusing clips whose frame
+    offsets do not fit the dedup's 16-bit packing."""
+    n_frames_max = (samples.shape[1] - wsize) // hop + 1
+    if n_frames_max > 1 << 16:
+        raise ValueError(
+            f"clip spans {n_frames_max} frames > 2^16: the packed (ex, t1) "
+            "dedup sort key would alias offsets. Use recognize_samples for "
+            "clips longer than ~51 minutes.")
+    return fingerprint_batch_fused(
+        samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
+        radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
+        peak_capacity=peak_capacity)
 
 
 def recognize_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
@@ -99,21 +126,46 @@ def recognize_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
                         max_dt: int = 200, peak_capacity: int = 4096,
                         n_songs: int, delta_min: int, delta_range: int,
                         match_capacity: int = 16384, topn: int = 2,
-                        query_capacity: int = 4096,
-                        sparse_threshold: int = 16_000_000):
+                        query_capacity: int = 4096, rank_candidates: int = 0,
+                        sparse_threshold: int = 16_000_000,
+                        vote_rank: str = "pruned", expand_block: int = 0,
+                        expand_runs: int = 0):
     """(1, N) f32 clip, (1,) valid length -> (RawMatch, n_pairs, n_peaks,
     n_hashes_total) on the device; nothing is read back here."""
-    n_frames_max = (samples.shape[1] - wsize) // hop + 1
-    if n_frames_max > 1 << 16:
-        raise ValueError(
-            f"clip spans {n_frames_max} frames > 2^16: the packed (ex, t1) "
-            "dedup sort key would alias offsets. Use recognize_samples for "
-            "clips longer than ~51 minutes.")
-    fp = fingerprint_batch_fused(
+    fp = _fingerprint_clip(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
         peak_capacity=peak_capacity)
     return recognize_fingerprints(
         fp, index, n_songs=n_songs, delta_min=delta_min,
         delta_range=delta_range, match_capacity=match_capacity, topn=topn,
-        query_capacity=query_capacity, sparse_threshold=sparse_threshold)
+        query_capacity=query_capacity, rank_candidates=rank_candidates,
+        sparse_threshold=sparse_threshold, vote_rank=vote_rank,
+        expand_block=expand_block, expand_runs=expand_runs)
+
+
+def fingerprint_probe_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
+                                index: DeviceIndex, *, fs: int = 44100,
+                                wsize: int = 4096, hop: int = 2048,
+                                amp_min: float = 10.0, radius: int = 10,
+                                fan_value: int = 5, min_dt: int = 0,
+                                max_dt: int = 200, peak_capacity: int = 4096,
+                                query_capacity: int = 4096):
+    """Fingerprint + dedup + the exact-total search, the query kept on the
+    device.
+
+    Returns (q, n_pairs, n_peaks, n_hashes_total, total, lb, ub) with
+    ``q = (sort_hi, lo, ex, t1, q_valid, q_first)``: the caller reads the
+    total, picks the capacity tier it fits and matches ``q`` once there,
+    passing (lb, ub) back as ``bounds`` so the search does not run twice.
+    """
+    fp = _fingerprint_clip(
+        samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
+        radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
+        peak_capacity=peak_capacity)
+    (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
+     n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
+    total, lb, ub = query_total(index, sort_hi, lo, ex, q_valid,
+                                with_bounds=True)
+    return ((sort_hi, lo, ex, t1, q_valid, q_first), n_pairs, fp.n_peaks[0],
+            n_hashes_total, total, lb, ub)

@@ -89,3 +89,44 @@ def test_sia_on_cuda_matches_cpu(cuda):
     assert compact.KERNEL.launches == n + 1
     assert got["results"] == cpu.recognize_clip(clip)["results"]
     assert got["results"][0]["song_name"] == "s2"
+
+
+@pytest.mark.parametrize("cfg", [
+    {},                                               # dense histogram
+    {"sparse_vote_threshold": 0},                     # sort rank
+    {"sparse_vote_threshold": 0, "vote_rank": "pruned"},  # pruned rank
+    {"sparse_vote_threshold": 0, "vote_rank": "scan", "expand_block": 128,
+     "expand_block_min_capacity": 0},                 # scan, blocked
+    {"sparse_vote_threshold": 0, "bounds_probe_min_rows": 1},  # decided-first
+])
+def test_recognize_clip_syncs_only_to_copy(cuda, cfg):
+    """One recognize_clip pass syncs the host three times: the clip's two
+    uploads and the single read-back. The answer equals the CPU's."""
+    import warnings
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.config import FingerprintConfig
+
+    songs = [(f"s{i}", synth_song(i, 10.0, seed=5)) for i in range(4)]
+    gpu = SIA(config=FingerprintConfig(**cfg), device="cuda")
+    cpu = SIA(config=FingerprintConfig(**cfg), device="cpu")
+    gpu.ingest_arrays(songs)
+    cpu.ingest_arrays(songs)
+    clip = songs[1][1][30 * 2048: 30 * 2048 + 4 * 44100]
+    gpu.recognize_clip(clip)        # uploads the index
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")   # may warn itself: not counted
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            got = gpu.recognize_clip(clip)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    assert got["query_time"] == 0.0          # answered in one pass
+    assert len(syncs) == 3, [(w.filename, w.lineno) for w in syncs]
+    timing = ("fingerprint_time", "query_time", "align_time", "total_time")
+    want = cpu.recognize_clip(clip)
+    assert ({k: v for k, v in got.items() if k not in timing}
+            == {k: v for k, v in want.items() if k not in timing})
+    assert got["results"][0]["song_name"] == "s1"

@@ -4,18 +4,28 @@ A 6-song x 10 s seeded corpus goes into both packages' SIA (the port on
 the CPU, i.e. through the kernels' plain twins); 4 s clips cut at
 frame-aligned offsets must give the same top-1 song and offset in both,
 and the source song. Also the catalog/index life cycle: resume, save and
-cross-load, delete, metadata, overflow retries, the unported sparse
-branch.
+cross-load, delete, metadata, overflow retries, the sparse branch.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from shazam_tpu_torch.api import SIA
 from shazam_tpu_torch.audio import synth_song
 
 N_SONGS, SONG_S, CLIP_S = 6, 10.0, 4.0
 FS, HOP = 44100, 2048
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs files in parallel worker processes: torch's CPU ops
+    here use one thread so that the workers do not oversubscribe cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -163,11 +173,21 @@ def test_query_lane_overflow_hands_off(engines, monkeypatch):
         k: got[k] for k in got if k.endswith("_time")}
 
 
-def test_sparse_catalogs_are_not_ported_yet(songs):
+def test_sparse_threshold_answers_like_dense(songs):
+    """Past sparse_vote_threshold both recognition paths take the sparse
+    ranks and give the dense answer."""
     from shazam_tpu_torch.config import FingerprintConfig
 
+    dense = SIA(device="cpu")
     port = SIA(config=FingerprintConfig(sparse_vote_threshold=100),
                device="cpu")
-    port.ingest_arrays(songs[:1])
-    with pytest.raises(NotImplementedError):
-        port.recognize_clip(songs[0][1][: int(CLIP_S * FS)])
+    for sia in (dense, port):
+        sia.ingest_arrays(songs[:3])
+    frame = 20
+    clip = songs[1][1][frame * HOP: frame * HOP + int(CLIP_S * FS)]
+    want = dense.recognize_clip(clip)
+    assert want["results"][0]["offset"] == frame
+    timing = ("fingerprint_time", "query_time", "align_time", "total_time")
+    for got in (port.recognize_clip(clip), port.recognize_samples([clip])):
+        assert ({k: v for k, v in got.items() if k not in timing}
+                == {k: v for k, v in want.items() if k not in timing})

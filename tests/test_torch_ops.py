@@ -27,7 +27,8 @@ def test_config_matches_jax_package():
     assert port.hop == cfg.hop == 3072
     assert port.frames_to_seconds(77) == cfg.frames_to_seconds(77)
     for bad in ({"window_size": 3000}, {"overlap_ratio": 1.0},
-                {"fan_value": 0}):
+                {"fan_value": 0}, {"vote_rank": "dense"},
+                {"escalation_policy": "probe"}):
         with pytest.raises(ValueError):
             FingerprintConfig(**bad)
 

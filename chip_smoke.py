@@ -18,7 +18,16 @@ Phases (each raises on failure; any failure exits non-zero):
    (both compute in float64; the distance of an f32 FFT from the twin is
    printed beside it, as the gap the bound has to tell apart); K2 and K3
    bit-exact.
-   Kernel and plain times are CUDA-event medians;
+   Kernel and plain times (``ms``, ``plain_ms``) are CUDA-event medians
+   over back-to-back calls, host launch time included; ``device_ms`` is the
+   kernel's own duration in a ``torch.profiler`` trace, the median of a
+   few calls; ``bound_ms`` is the least time the card could take, the
+   larger of the bytes over 3.35 TB/s and the operations over the peak
+   rate of their type (K1: float64, 34 TFLOP/s; K2: float32 compares, 67
+   TFLOP/s), counted from this run's inputs; ``library_ms`` (K1 only) is
+   one ``torch.fft.rfft`` in float64 over frames windowed beforehand, the
+   cuFFT core of K1's work, which the port never calls. K2 and K3 have no
+   such call;
 3. end to end: ``SIA(device="cuda")`` ingests the catalog (2,035 seeded
    30 s synthetic songs, synthesized by a process pool, in chunks of 256)
    and ``recognize_clip`` answers seeded 5 s clips cut at frame-aligned
@@ -45,6 +54,12 @@ It prints the card's name and power limit, build seconds, per-kernel
 times, ingest seconds and rows, clip latencies and the idle shares, then
 one JSON line of per-kernel and per-phase results and, last,
 ``{"ok": true, "device": {...}}``.
+
+``--kernels-only`` stops after phase 2 and prints its results as one
+JSON line. ``--k1-baseline PATH`` builds PATH, an earlier
+``csrc/spectrogram.cu`` with the same C entry point, into a library of
+its own and, in phase 2, holds it against K1's plain twin and times it
+in turns with the current K1.
 """
 
 from __future__ import annotations
@@ -87,6 +102,10 @@ BIG_VARIANTS = (
                           escalation_policy="bounds")),
     ("dense", dict(sparse_vote_threshold=1 << 31)),
 )
+HBM_BYTES_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
+F64_FLOP_S = 34e12      # float64 outside the tensor cores
+F32_FLOP_S = 67e12      # float32 outside the tensor cores
+DEVICE_CALLS = 5        # profiled calls per device_ms median
 KERNELS = (
     ("spectrogram_power", "shazam_tpu_torch/csrc/spectrogram.cu",
      "shazam_tpu/ops/pallas/spectrogram.py:107"),
@@ -155,8 +174,69 @@ def _device_busy_ms(fn):
     return busy_us / 1e3 if spans else None
 
 
-def check_kernels(device) -> dict:
-    """Phase 2: each kernel against its plain twin at every main-path shape."""
+def _device_ms(fn) -> float | None:
+    """Median device-busy ms of ``DEVICE_CALLS`` calls, each traced alone."""
+    runs = [_device_busy_ms(fn) for _ in range(DEVICE_CALLS)]
+    return None if None in runs else float(np.median(runs))
+
+
+def _bound(nbytes: float, ops: float, op_rate: float):
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_S, 1e3 * ops / op_rate
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def kernel_bounds(n: int, nvf: np.ndarray, n_frames: int, cap: int) -> dict:
+    """Each kernel's bound at one shape, from its inputs and outputs, each
+    read or written once; where the work depends on the data, what this
+    data needs (K1 reads only samples under valid frames and transforms
+    only valid frames)."""
+    bsz, cells = len(nvf), len(nvf) * n_frames * 2049
+    live = nvf[nvf > 0].astype(np.int64)
+    k1_in = 4 * int(((live - 1) * HOP + 4096).sum())
+    # per valid frame: window 4096 products, a 2048-point complex FFT at
+    # the radix-2 count 5 N log2 N, and 26 flops per split pair of bins
+    # (E/O, twiddle product, two |X|^2 and two scales) over 1025 pairs
+    k1_ops = int(live.sum()) * (4096 + 5 * 2048 * 11 + 26 * 1025)
+    mask_bytes = 4 * bsz * n_frames * 65
+    return {
+        # samples in, power out; float64 ops
+        "spectrogram_power": _bound(k1_in + 4 * cells, k1_ops, F64_FLOP_S),
+        # power in, mask words out; two separable 21-wide max passes (40
+        # compares), the equality and the gate per cell, in float32
+        "peak_mask": _bound(4 * cells + mask_bytes, 43 * cells, F32_FLOP_S),
+        # mask words in; times, freqs (B, cap) and n_peaks out
+        "compact": _bound(mask_bytes + 8 * bsz * cap + 4 * bsz, 0, F32_FLOP_S),
+    }
+
+
+def _k1_baseline(path: str):
+    """A Kernel for an earlier K1 source with the same C entry point,
+    built into a library of its own."""
+    from pathlib import Path
+
+    from shazam_tpu_torch import _build
+    from shazam_tpu_torch.ops.cuda import spectrogram as k1
+
+    lib_path = _build.BUILD_DIR / f"baseline_{Path(path).stem}.so"
+    secs = _build.compile_library([Path(path).resolve()], lib_path)
+    print(f"K1 baseline from {path}: built in {secs:.3f} s", flush=True)
+    return _build.Kernel("spectrogram_power (baseline)", k1.KERNEL.symbol,
+                         k1.KERNEL.argtypes,
+                         loader=lambda: _build.load(lib_path))
+
+
+def _wrappers() -> dict:
+    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
+
+    return {"spectrogram_power": spectrogram.KERNEL,
+            "peak_mask": peaks.KERNEL, "compact": compact.KERNEL}
+
+
+def check_kernels(device, k1_baseline=None) -> dict:
+    """Phase 2: each kernel against its plain twin at every main-path
+    shape; ``k1_baseline`` (a Kernel) is held against K1's twin and timed
+    in turns with the current K1."""
     import torch
 
     from shazam_tpu_torch.audio import synth_song
@@ -164,7 +244,7 @@ def check_kernels(device) -> dict:
     from shazam_tpu_torch.ops.cuda import peaks as k2
     from shazam_tpu_torch.ops.cuda import spectrogram as k1
     from shazam_tpu_torch.ops.peaks import compact_plain, peak_mask_plain
-    from shazam_tpu_torch.ops.spectrogram import (db_spectrogram,
+    from shazam_tpu_torch.ops.spectrogram import (db_spectrogram, hann_window,
                                                   spectrogram_power_plain)
 
     out = {name: {} for name, _, _ in KERNELS}
@@ -186,13 +266,18 @@ def check_kernels(device) -> dict:
         if not torch.isfinite(power).all():
             raise AssertionError(f"K1 {label}: non-finite power")
         db_p = db_spectrogram(power_p)
-        k1_err = float((db_spectrogram(power) - db_p).abs().max())
+
+        def k1_err(power, who="K1"):
+            err = float((db_spectrogram(power) - db_p).abs().max())
+            if not (err < K1_DB_BOUND and torch.equal(power == 0, power_p == 0)):
+                raise AssertionError(
+                    f"{who} {label}: max|ddB| {err} (bound {K1_DB_BOUND}) or "
+                    "exact zeros differ")
+            return err
+
+        k1_e = k1_err(power)
         f32_err = float((db_spectrogram(power_f32) - db_p).abs().max())
         del power_f32
-        if not (k1_err < K1_DB_BOUND and torch.equal(power == 0, power_p == 0)):
-            raise AssertionError(
-                f"K1 {label}: max|ddB| {k1_err} (bound {K1_DB_BOUND}) or "
-                "exact zeros differ")
 
         bits = k2.peak_mask(power, 10.0)
         bits_p = peak_mask_plain(power, 10.0)
@@ -210,21 +295,64 @@ def check_kernels(device) -> dict:
         if int(got[2].max()) > cap:
             raise AssertionError(f"K3 {label}: peak capacity {cap} overflowed")
 
+        # the library yardstick: cuFFT's float64 rfft of every frame,
+        # windowed beforehand (the port never calls it)
+        n_frames = power.shape[1]
+        win = hann_window(4096, device)
+        frames = xs[:, : (n_frames - 1) * HOP + 4096].unfold(1, 4096, HOP)
+        frames = frames.to(torch.float64) * win
+
+        bounds = kernel_bounds(n, nvf, n_frames, cap)
         timings = (
             ("spectrogram_power", lambda: k1.spectrogram_power(xs, nv),
-             lambda: spectrogram_power_plain(xs, nv), k1_err),
+             lambda: spectrogram_power_plain(xs, nv), k1_e,
+             lambda: torch.fft.rfft(frames, dim=-1)),
             ("peak_mask", lambda: k2.peak_mask(power, 10.0),
-             lambda: peak_mask_plain(power, 10.0), k2_err),
+             lambda: peak_mask_plain(power, 10.0), k2_err, None),
             ("compact", lambda: k3.compact(bits, cap),
-             lambda: compact_plain(bits, cap), k3_err),
+             lambda: compact_plain(bits, cap), k3_err, None),
         )
-        for name, kfn, pfn, e in timings:
+        for name, kfn, pfn, e, lib_fn in timings:
             ms, plain_ms = _timed_pair(kfn, pfn)
-            out[name][label] = {"ms": ms, "plain_ms": plain_ms, "err": e}
+            bound_ms, bound_by = bounds[name]
+            rec = {"ms": ms, "plain_ms": plain_ms, "device_ms": _device_ms(kfn),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None, "library_device_ms": None, "err": e}
+            if lib_fn is not None:
+                lib_fn()
+                rec["library_ms"] = float(np.median(
+                    [_event_ms(lib_fn) for _ in range(5)]))
+                rec["library_device_ms"] = _device_ms(lib_fn)
+            out[name][label] = rec
             print(f"kernel {name} {label} {tuple(x.shape)}: {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, max_abs_err {e}"
+                  f"device {rec['device_ms']} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), plain {plain_ms:.4f} ms, library "
+                  f"{rec['library_ms']} ms (device "
+                  f"{rec['library_device_ms']}), max_abs_err {e}"
                   + (" dB" if name == "spectrogram_power" else ""), flush=True)
-        print(f"K1 {label}: max|ddB| {k1_err:.3g} (bound {K1_DB_BOUND}); an "
+        del frames
+        if k1_baseline is not None:
+            current = k1.KERNEL
+            k1_call = timings[0][1]
+
+            def baseline():
+                k1.KERNEL = k1_baseline
+                try:
+                    return k1.spectrogram_power(xs, nv)
+                finally:
+                    k1.KERNEL = current
+
+            err = k1_err(baseline(), "K1 baseline")
+            ms, base_ms = _timed_pair(k1_call, baseline)
+            rec = {"ms": base_ms, "device_ms": _device_ms(baseline),
+                   "err": err, "current_ms": ms,
+                   "current_device_ms": _device_ms(k1_call)}
+            out.setdefault("k1_baseline", {})[label] = rec
+            print(f"K1 baseline {label}: {base_ms:.4f} ms, device "
+                  f"{rec['device_ms']} ms, max_abs_err {err} dB; current "
+                  f"{ms:.4f} ms in turns, device {rec['current_device_ms']} "
+                  "ms", flush=True)
+        print(f"K1 {label}: max|ddB| {k1_e:.3g} (bound {K1_DB_BOUND}); an "
               f"f32 torch.fft.rfft is {f32_err:.6f} dB from the same float64 "
               f"twin; n_peaks {got[2].tolist()}", flush=True)
     return out
@@ -524,6 +652,11 @@ def main(argv=None) -> int:
     ap.add_argument("--big-songs", type=int, default=BIG_SONGS)
     ap.add_argument("--big-clips", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (build and kernel checks)")
+    ap.add_argument("--k1-baseline", metavar="PATH",
+                    help="an earlier csrc/spectrogram.cu, timed in turns "
+                         "with the current K1 in phase 2")
     args = ap.parse_args(argv)
 
     import torch
@@ -533,7 +666,6 @@ def main(argv=None) -> int:
         return 1
     from shazam_tpu_torch import _build
     from shazam_tpu_torch.device import resolve_device
-    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -547,10 +679,13 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc {compiled:.3f} s)",
           flush=True)
 
-    measured = check_kernels(device)
+    measured = check_kernels(
+        device, _k1_baseline(args.k1_baseline) if args.k1_baseline else None)
+    if args.kernels_only:
+        print(json.dumps(measured), flush=True)
+        return 0
 
-    wrappers = {"spectrogram_power": spectrogram.KERNEL,
-                "peak_mask": peaks.KERNEL, "compact": compact.KERNEL}
+    wrappers = _wrappers()
     workers = os.cpu_count() or 1
 
     def launched(label, phase):
@@ -573,15 +708,16 @@ def main(argv=None) -> int:
     report = []
     for name, source, replaces in KERNELS:
         m = measured[name]
+        # the top-level numbers are the ingest shape's, the largest
         report.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "launches_big_catalog": launches_big[name],
             "max_abs_err": max(m[label]["err"] for label, _ in SHAPES),
-            "ms": m["ingest"]["ms"], "plain_ms": m["ingest"]["plain_ms"],
-            "clip_ms": m["clip"]["ms"], "clip_plain_ms": m["clip"]["plain_ms"],
-            "big_clip_ms": m["big_clip"]["ms"],
-            "big_clip_plain_ms": m["big_clip"]["plain_ms"],
+            **{k: m["ingest"][k] for k in (
+                "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "shapes": m,
         })
     print(json.dumps({"kernels": report, "end_to_end": e2e,
                       "big_catalog": big}), flush=True)

@@ -5,7 +5,9 @@ sorted 80-bit hash index, offset-histogram voting) with plain PyTorch
 tensor code and hand-written CUDA kernels for the three hot fingerprint
 stages (``csrc/``). Every function takes tensors on an explicit device;
 CPU tensors run the plain PyTorch twins of the kernels, CUDA tensors run
-the kernels. The package never imports JAX.
+the kernels. The entry points ``SIA`` and ``ops.fingerprint.fingerprint``
+run on the card unless called with ``device="cpu"``. The package never
+imports JAX.
 """
 
 from .config import DEFAULT_CONFIG, FingerprintConfig

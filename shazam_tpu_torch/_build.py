@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into a shared
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), placed in ``_build/`` under a name keyed by a hash of the
 sources and flags, and loaded with ``ctypes``. The build happens on first
@@ -23,14 +24,14 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # -O3 only: fast-math would flush denormals and relax the FFT/compare
 # arithmetic the kernels must share with their plain PyTorch twins
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -59,39 +60,57 @@ def library_path() -> Path:
     return BUILD_DIR / f"libshazam_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _check(cmd, returncode: int, stdout: str, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{stdout}\n{stderr}")
+
+
+def compile_library(cu: Sequence[Path], out: Path) -> float:
+    """Compile the sources ``cu`` (one ``nvcc`` each, in parallel) and link
+    them into the shared library ``out``; returns the seconds it took."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{i}_{p.stem}.o" for i, p in enumerate(cu)]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                 str(p)] for p, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        results = [p.communicate() for p in procs]  # waits for every one
+        for cmd, proc, (stdout, stderr) in zip(cmds, procs, results):
+            _check(cmd, proc.returncode, stdout, stderr)
+        so = Path(tmp) / out.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        _check(link, res.returncode, res.stdout, res.stderr)
+        os.replace(so, out)  # atomic: a concurrent build never loads half a file
+    return time.perf_counter() - t0
+
+
 def build() -> float:
     """Compile ``csrc/*.cu`` if the keyed library is missing; returns the
     seconds spent compiling (0.0 when it was already built)."""
     out = library_path()
     if out.exists():
         return 0.0
-    cu, _ = _sources()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return time.perf_counter() - t0
+    return compile_library(_sources()[0], out)
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library (every one exports shz_error_string)."""
+    lib = ctypes.CDLL(str(path))
+    lib.shz_error_string.argtypes = [ctypes.c_int]
+    lib.shz_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     build()
-    lib = ctypes.CDLL(str(library_path()))
-    lib.shz_error_string.argtypes = [ctypes.c_int]
-    lib.shz_error_string.restype = ctypes.c_char_p
-    return lib
+    return load(library_path())
 
 
 class Kernel:
@@ -99,25 +118,33 @@ class Kernel:
 
     ``launches`` grows by one for each successful launch and nowhere
     else; callers may reset it to 0 before a run they want to attribute.
+    ``loader`` returns the library that holds the symbol: the package's
+    own by default, another build (an earlier kernel source) for a
+    side-by-side timing.
     """
 
-    def __init__(self, name: str, symbol: str, argtypes: Sequence):
+    def __init__(self, name: str, symbol: str, argtypes: Sequence,
+                 loader: Callable[[], ctypes.CDLL] = library):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.loader = loader
         self.launches = 0
 
-    def __call__(self, *args) -> None:
-        lib = library()
-        fn = getattr(lib, self.symbol)
+    @functools.cached_property
+    def _fn(self):
+        fn = getattr(self.loader(), self.symbol)
         fn.argtypes = self.argtypes + [ctypes.c_void_p]  # + the stream
         fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, *args) -> None:
         import torch
 
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, stream)
+        rc = self._fn(*args, stream)
         if rc != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed with error {rc} "
-                f"({lib.shz_error_string(rc).decode()})")
+                f"({self.loader().shz_error_string(rc).decode()})")
         self.launches += 1

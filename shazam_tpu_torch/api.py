@@ -59,12 +59,13 @@ class SIA:
 
     One object owns the config, the device, the song catalog (host
     sqlite) and the fingerprint index (host numpy, uploaded to the device
-    on first query after each change).
+    on first query after each change). The device is the card unless
+    ``device="cpu"`` asks for the CPU; without a card, ``"cuda"`` raises.
     """
 
     def __init__(self, config: FingerprintConfig = DEFAULT_CONFIG,
                  catalog_path: str = ":memory:",
-                 index: Optional[FingerprintIndex] = None, device="cpu"):
+                 index: Optional[FingerprintIndex] = None, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
         self.catalog = SongCatalog(catalog_path)

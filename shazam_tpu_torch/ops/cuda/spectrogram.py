@@ -27,14 +27,31 @@ KERNEL = Kernel(
      ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
 
 
+def _roots(m: int, e: np.ndarray) -> np.ndarray:
+    """W_m^e = exp(-2 pi i e / m) as (..., 2) float64 (cos, sin) pairs."""
+    ang = -2.0 * np.pi * (e % m) / m
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+
+
+def twiddle_table() -> np.ndarray:
+    """The kernel's packed float64 twiddles, (4081, 2): W_4096^k for
+    k = 0..2048 (the real-to-complex split), then the Stockham passes'
+    W_256^(k r) as [r - 1][k] for r < 16, k < 16, and W_2048^(k r) as
+    [r - 1][k] for r < 8, k < 256 (a warp reads consecutive entries)."""
+    r16, k16 = np.meshgrid(np.arange(1, 16), np.arange(16), indexing="ij")
+    r8, k256 = np.meshgrid(np.arange(1, 8), np.arange(256), indexing="ij")
+    return np.ascontiguousarray(np.concatenate([
+        _roots(WSIZE, np.arange(N_BINS)),
+        _roots(256, r16 * k16).reshape(-1, 2),
+        _roots(2048, r8 * k256).reshape(-1, 2)]))
+
+
 @functools.lru_cache(maxsize=8)
 def _tables(device: torch.device):
-    """float64 Hann window and W_4096^k twiddles (k = 0..2048)."""
-    k = np.arange(N_BINS)
-    ang = -2.0 * np.pi * k / WSIZE
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    """float64 Hann window (np.hanning(4096), bit for bit) and the packed
+    twiddles, uploaded once per device."""
     return (hann_window(WSIZE, device).contiguous(),
-            torch.from_numpy(np.ascontiguousarray(tw)).to(device))
+            torch.from_numpy(twiddle_table()).to(device))
 
 
 def spectrogram_power(samples: torch.Tensor, n_valid_frames: torch.Tensor, *,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, FingerprintConfig
+from ..device import resolve_device
 from .cuda.compact import compact
 from .cuda.peaks import peak_mask
 from .cuda.spectrogram import spectrogram_power
@@ -125,9 +126,10 @@ def fingerprint_samples(samples: torch.Tensor, n_valid_samples=None,
 
 def fingerprint(samples, config: FingerprintConfig = DEFAULT_CONFIG,
                 peak_capacity: int | None = None,
-                device="cpu") -> Fingerprints:
-    """Config-driven ``fingerprint_samples`` of one channel."""
-    x = torch.as_tensor(np.asarray(samples), device=device)
+                device="cuda") -> Fingerprints:
+    """Config-driven ``fingerprint_samples`` of one channel, on the card
+    unless ``device="cpu"`` asks for the CPU (no card raises)."""
+    x = torch.as_tensor(np.asarray(samples), device=resolve_device(device))
     return fingerprint_samples(
         x,
         fs=config.sample_rate, wsize=config.window_size, hop=config.hop,

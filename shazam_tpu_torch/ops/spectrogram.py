@@ -17,6 +17,8 @@ reads beside it, to show how far f32 rounding alone moves the dB.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,6 +28,7 @@ def hann_window(wsize: int, device=None) -> torch.Tensor:
     return torch.from_numpy(np.hanning(wsize)).to(device)
 
 
+@functools.lru_cache(maxsize=8)
 def psd_scales(wsize: int, fs: int):
     """mlab one-sided PSD scale: (DC/Nyquist bins, other bins), float64.
 

@@ -64,6 +64,31 @@ def test_kernels_match_plain_twins(cuda):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 2]
 
 
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("n_frames", [1, 2, 3, 5])
+def test_spectrogram_edges_match_twin(cuda, n_frames, odd):
+    """K1 at frame counts that are no multiple of its frames per block,
+    with rows of 0, 1 and all valid frames; ``odd`` makes the row length
+    odd, so frame starts are not 8-byte aligned (scalar sample loads)."""
+    from shazam_tpu_torch.ops.cuda import spectrogram
+    from shazam_tpu_torch.ops.spectrogram import (db_spectrogram,
+                                                  spectrogram_power_plain)
+
+    n = 4096 + (n_frames - 1) * 2048 + odd
+    rng = np.random.default_rng(n_frames)
+    x = torch.from_numpy(rng.normal(0, 2000, (3, n)).astype(np.float32))
+    nvf = torch.tensor([0, 1, n_frames], dtype=torch.int32)
+    x, nvf = x.to(cuda), nvf.to(cuda)
+    power = spectrogram.spectrogram_power(x, nvf)
+    ref = spectrogram_power_plain(x, nvf)
+    torch.cuda.synchronize()
+    assert power.shape == ref.shape == (3, n_frames, 2049)
+    assert torch.equal(power == 0, ref == 0)
+    assert bool((power[0] == 0).all()) and bool((power[1, 1:] == 0).all())
+    diff = (db_spectrogram(power) - db_spectrogram(ref)).abs()
+    assert diff.max() < 1e-3
+
+
 def test_fused_fingerprint_on_cuda_equals_cpu(cuda):
     from shazam_tpu_torch.ops.fingerprint import fingerprint_batch_fused
 

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,6 +46,33 @@ def test_resolve_device_is_explicit(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def _sia(**kw):
+    from shazam_tpu_torch.api import SIA
+
+    return SIA(**kw)
+
+
+def _fingerprint(**kw):
+    from shazam_tpu_torch.ops.fingerprint import fingerprint
+
+    return fingerprint(np.zeros(8192, np.float32), **kw)
+
+
+@pytest.mark.parametrize("entry", [_sia, _fingerprint])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """No card: the default device raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        entry()
+
+
+def test_entry_points_run_on_the_cpu_when_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _sia(device="cpu").device == torch.device("cpu")
+    fp = _fingerprint(device="cpu")
+    assert fp.hi.device == torch.device("cpu") and int(fp.n_peaks) == 0
 
 
 def test_library_is_keyed_by_the_sources(tmp_path, monkeypatch):

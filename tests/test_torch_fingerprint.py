@@ -56,7 +56,7 @@ def test_fused_and_db_paths_match_jax_fingerprint_batch():
 def test_fingerprint_matches_oracle(short_clip):
     from tests.oracle import oracle_fingerprint
 
-    fp = fingerprint(short_clip)
+    fp = fingerprint(short_clip, device="cpu")
     assert int(fp.n_peaks) <= 8192
     ours = set(fingerprint_to_hex_pairs(fp))
     ref = set(oracle_fingerprint(short_clip))

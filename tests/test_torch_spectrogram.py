@@ -64,3 +64,21 @@ def test_spectrogram_power_matches_fused_pallas(clip):
                      db_spectrogram(torch.tensor(ref[b, live])).numpy())
         assert not got[b, nvf[b]:].any() and not ref[b, nvf[b]:].any()
     assert np.array_equal(got == 0, ref == 0)
+
+
+def test_k1_twiddle_table_layout():
+    """The packed float64 table the CUDA K1 reads: W_4096^k for k <= 2048,
+    then pass 2's W_256^(k r) and pass 3's W_2048^(k r), rows [r - 1][k]."""
+    from shazam_tpu_torch.ops.cuda.spectrogram import twiddle_table
+
+    tab = twiddle_table()
+    assert tab.shape == (4081, 2) and tab.dtype == np.float64
+
+    def root(m, e):
+        return np.exp(-2j * np.pi * e / m)
+
+    want = ([root(4096, k) for k in range(2049)]
+            + [root(256, k * r) for r in range(1, 16) for k in range(16)]
+            + [root(2048, k * r) for r in range(1, 8) for k in range(256)])
+    np.testing.assert_allclose(tab[:, 0] + 1j * tab[:, 1], want, rtol=0,
+                               atol=1e-15)

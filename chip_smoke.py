@@ -59,12 +59,14 @@ one JSON line of per-kernel and per-phase results and, last,
 JSON line. ``--k1-baseline PATH`` builds PATH, an earlier
 ``csrc/spectrogram.cu`` with the same C entry point, into a library of
 its own and, in phase 2, holds it against K1's plain twin and times it
-in turns with the current K1.
+in turns with the current K1. ``--k2-baseline PATH`` does the same for
+an earlier ``csrc/peaks.cu`` and K2 (bit-exact against its twin).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import multiprocessing as mp
 import os
@@ -210,33 +212,43 @@ def kernel_bounds(n: int, nvf: np.ndarray, n_frames: int, cap: int) -> dict:
     }
 
 
-def _k1_baseline(path: str):
-    """A Kernel for an earlier K1 source with the same C entry point,
-    built into a library of its own."""
+def _modules() -> dict:
+    """Each kernel's wrapper module, by kernel name."""
+    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
+
+    return {"spectrogram_power": spectrogram, "peak_mask": peaks,
+            "compact": compact}
+
+
+def _baselines(paths: dict) -> dict:
+    """{kernel name: Kernel} for earlier sources {kernel name: path}, each
+    with its kernel's C entry point, built into a library of its own."""
     from pathlib import Path
 
     from shazam_tpu_torch import _build
-    from shazam_tpu_torch.ops.cuda import spectrogram as k1
 
-    lib_path = _build.BUILD_DIR / f"baseline_{Path(path).stem}.so"
-    secs = _build.compile_library([Path(path).resolve()], lib_path)
-    print(f"K1 baseline from {path}: built in {secs:.3f} s", flush=True)
-    return _build.Kernel("spectrogram_power (baseline)", k1.KERNEL.symbol,
-                         k1.KERNEL.argtypes,
-                         loader=lambda: _build.load(lib_path))
+    out = {}
+    for name, path in paths.items():
+        current = _modules()[name].KERNEL
+        lib_path = _build.BUILD_DIR / f"baseline_{name}_{Path(path).stem}.so"
+        secs = _build.compile_library([Path(path).resolve()], lib_path)
+        print(f"{name} baseline from {path}: built in {secs:.3f} s",
+              flush=True)
+        out[name] = _build.Kernel(
+            f"{name} (baseline)", current.symbol, current.argtypes,
+            loader=lambda lib_path=lib_path: ctypes.CDLL(str(lib_path)))
+    return out
 
 
 def _wrappers() -> dict:
-    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
-
-    return {"spectrogram_power": spectrogram.KERNEL,
-            "peak_mask": peaks.KERNEL, "compact": compact.KERNEL}
+    return {name: mod.KERNEL for name, mod in _modules().items()}
 
 
-def check_kernels(device, k1_baseline=None) -> dict:
+def check_kernels(device, baselines=None) -> dict:
     """Phase 2: each kernel against its plain twin at every main-path
-    shape; ``k1_baseline`` (a Kernel) is held against K1's twin and timed
-    in turns with the current K1."""
+    shape; each of ``baselines`` ({kernel name: Kernel}, an earlier K1 or
+    K2) is held against the same twin and timed in turns with the current
+    kernel."""
     import torch
 
     from shazam_tpu_torch.audio import synth_song
@@ -282,9 +294,14 @@ def check_kernels(device, k1_baseline=None) -> dict:
         bits = k2.peak_mask(power, 10.0)
         bits_p = peak_mask_plain(power, 10.0)
         torch.cuda.synchronize()
-        k2_err = int((bits != bits_p).sum())
-        if k2_err:
-            raise AssertionError(f"K2 {label}: {k2_err} mask words differ")
+
+        def k2_err(bits, who="K2"):
+            err = int((bits != bits_p).sum())
+            if err:
+                raise AssertionError(f"{who} {label}: {err} mask words differ")
+            return err
+
+        k2_e = k2_err(bits)
 
         got = k3.compact(bits, cap)
         ref = compact_plain(bits, cap)
@@ -308,7 +325,7 @@ def check_kernels(device, k1_baseline=None) -> dict:
              lambda: spectrogram_power_plain(xs, nv), k1_e,
              lambda: torch.fft.rfft(frames, dim=-1)),
             ("peak_mask", lambda: k2.peak_mask(power, 10.0),
-             lambda: peak_mask_plain(power, 10.0), k2_err, None),
+             lambda: peak_mask_plain(power, 10.0), k2_e, None),
             ("compact", lambda: k3.compact(bits, cap),
              lambda: compact_plain(bits, cap), k3_err, None),
         )
@@ -331,25 +348,28 @@ def check_kernels(device, k1_baseline=None) -> dict:
                   f"{rec['library_device_ms']}), max_abs_err {e}"
                   + (" dB" if name == "spectrogram_power" else ""), flush=True)
         del frames
-        if k1_baseline is not None:
-            current = k1.KERNEL
-            k1_call = timings[0][1]
+        checks = {"spectrogram_power": (k1, k1_err, " dB"),
+                  "peak_mask": (k2, k2_err, "")}
+        calls = {name: kfn for name, kfn, *_ in timings}
+        for name, kernel in (baselines or {}).items():
+            mod, check, unit = checks[name]
+            current, call = mod.KERNEL, calls[name]
 
-            def baseline():
-                k1.KERNEL = k1_baseline
+            def baseline(mod=mod, kernel=kernel, current=current, call=call):
+                mod.KERNEL = kernel
                 try:
-                    return k1.spectrogram_power(xs, nv)
+                    return call()
                 finally:
-                    k1.KERNEL = current
+                    mod.KERNEL = current
 
-            err = k1_err(baseline(), "K1 baseline")
-            ms, base_ms = _timed_pair(k1_call, baseline)
+            err = check(baseline(), f"{name} baseline")
+            ms, base_ms = _timed_pair(call, baseline)
             rec = {"ms": base_ms, "device_ms": _device_ms(baseline),
                    "err": err, "current_ms": ms,
-                   "current_device_ms": _device_ms(k1_call)}
-            out.setdefault("k1_baseline", {})[label] = rec
-            print(f"K1 baseline {label}: {base_ms:.4f} ms, device "
-                  f"{rec['device_ms']} ms, max_abs_err {err} dB; current "
+                   "current_device_ms": _device_ms(call)}
+            out.setdefault(f"{name}_baseline", {})[label] = rec
+            print(f"{name} baseline {label}: {base_ms:.4f} ms, device "
+                  f"{rec['device_ms']} ms, max_abs_err {err}{unit}; current "
                   f"{ms:.4f} ms in turns, device {rec['current_device_ms']} "
                   "ms", flush=True)
         print(f"K1 {label}: max|ddB| {k1_e:.3g} (bound {K1_DB_BOUND}); an "
@@ -657,6 +677,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k1-baseline", metavar="PATH",
                     help="an earlier csrc/spectrogram.cu, timed in turns "
                          "with the current K1 in phase 2")
+    ap.add_argument("--k2-baseline", metavar="PATH",
+                    help="an earlier csrc/peaks.cu, timed in turns with "
+                         "the current K2 in phase 2")
     args = ap.parse_args(argv)
 
     import torch
@@ -679,8 +702,10 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc {compiled:.3f} s)",
           flush=True)
 
+    paths = {"spectrogram_power": args.k1_baseline,
+             "peak_mask": args.k2_baseline}
     measured = check_kernels(
-        device, _k1_baseline(args.k1_baseline) if args.k1_baseline else None)
+        device, _baselines({k: v for k, v in paths.items() if v}))
     if args.kernels_only:
         print(json.dumps(measured), flush=True)
         return 0

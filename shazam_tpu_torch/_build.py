@@ -99,18 +99,15 @@ def build() -> float:
     return compile_library(_sources()[0], out)
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built kernel library (every one exports shz_error_string)."""
-    lib = ctypes.CDLL(str(path))
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The package's own kernel library, which also exports
+    ``shz_error_string`` (an earlier kernel built alone may not)."""
+    build()
+    lib = ctypes.CDLL(str(library_path()))
     lib.shz_error_string.argtypes = [ctypes.c_int]
     lib.shz_error_string.restype = ctypes.c_char_p
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    build()
-    return load(library_path())
 
 
 class Kernel:
@@ -146,5 +143,5 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed with error {rc} "
-                f"({self.loader().shz_error_string(rc).decode()})")
+                f"({library().shz_error_string(rc).decode()})")
         self.launches += 1

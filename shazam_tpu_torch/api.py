@@ -3,7 +3,9 @@
 The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
 
 - ``SIA.ingest_arrays``: fingerprint decoded songs in padded batches on the
-  device (``fingerprint_batch_fused``: K1 -> K2 -> K3 on CUDA), set-union
+  device (``fingerprint_batch_fused``: K1 -> K2 -> K3 on CUDA, for the
+  configurations ``_fused_ok`` admits; the plain ``fingerprint_batch`` on
+  the same device for any other, as the JAX package does), set-union
   each song's channels on the host, record it in the catalog, and merge
   its sorted run into the host index. A song becomes durable only after
   its hashes are merged (the reference's set_song_fingerprinted rule).
@@ -44,9 +46,22 @@ from .match.align import align_results
 from .match.lookup import match_by_rank, query_total, raw_to_host
 from .match.ondevice import fingerprint_probe_on_device, recognize_on_device
 from .match.prepare import prepare_query, q_frames_for_max_offset
-from .ops.fingerprint import Fingerprints, fingerprint_batch_fused, union_pairs
+from .ops.fingerprint import (Fingerprints, fingerprint_batch,
+                              fingerprint_batch_fused, union_pairs)
 
 MAX_PEAK_CAPACITY = 1 << 22
+
+
+def _fused_ok(config: FingerprintConfig) -> bool:
+    """The kernels (K1 -> K2 -> K3) cover the reference configuration,
+    whose window and peak radius they are compiled for; anything else
+    takes the plain pipeline, with the same semantics."""
+    return (
+        config.window_size == 4096
+        and config.window_size % config.hop == 0
+        and config.peak_neighborhood_size == 10
+        and config.amp_min > 0
+    )
 
 
 def _bucket_len(n: int, step: int = 1 << 18) -> int:
@@ -147,18 +162,16 @@ class SIA:
                     n_valid[row] = len(chan_data[ci])
                 x = torch.from_numpy(batch).to(self.device).to(torch.float32)
                 nv = torch.from_numpy(n_valid).to(self.device)
-                fp = fingerprint_batch_fused(
-                    x, nv, **self._fp_kwargs(peak_capacity=peak_cap))
+                fp = self._fingerprint(x, nv, peak_cap)
                 fp = Fingerprints(*(a.cpu() for a in fp))
                 for row, ci in enumerate(ids):
                     si = chan_meta[ci][0]
                     one = Fingerprints(*(a[row] for a in fp))
                     if int(one.n_peaks) > peak_cap:
-                        # peak-capacity overflow: the same kernel path
+                        # peak-capacity overflow: the same path
                         # again at twice the capacity, this channel alone
-                        fp2 = fingerprint_batch_fused(
-                            x[row:row + 1], nv[row:row + 1],
-                            **self._fp_kwargs(peak_capacity=2 * peak_cap))
+                        fp2 = self._fingerprint(
+                            x[row:row + 1], nv[row:row + 1], 2 * peak_cap)
                         one = Fingerprints(*(a[0].cpu() for a in fp2))
                         stats["fallbacks"] = stats.get("fallbacks", 0) + 1
                         if int(one.n_peaks) > 2 * peak_cap:
@@ -209,6 +222,14 @@ class SIA:
                            else peak_capacity),
         )
 
+    def _fingerprint(self, x: torch.Tensor, nv: torch.Tensor,
+                     peak_capacity: int) -> Fingerprints:
+        """Fingerprints of a (B, N) batch: the kernels where ``_fused_ok``
+        admits the config, the plain pipeline otherwise."""
+        fp_fn = (fingerprint_batch_fused if _fused_ok(self.config)
+                 else fingerprint_batch)
+        return fp_fn(x, nv, **self._fp_kwargs(peak_capacity=peak_capacity))
+
     def _delta_params_for(self, n_samples: int) -> Tuple[int, int]:
         """(delta_min, delta_range) of the vote histogram for a query."""
         n_frames = max(
@@ -229,12 +250,11 @@ class SIA:
 
     def _fingerprint_channel(self, samples: np.ndarray) -> Fingerprints:
         """One channel's fingerprints at the smallest capacity that holds
-        all its peaks (x2 per retry; every retry is the same kernel path)."""
+        all its peaks (x2 per retry; every retry takes the same path)."""
         x, nv = self._to_device(samples)
         cap = self.config.peak_capacity
         while True:
-            fp = fingerprint_batch_fused(
-                x, nv, **self._fp_kwargs(peak_capacity=cap))
+            fp = self._fingerprint(x, nv, cap)
             n = int(fp.n_peaks[0])
             if n <= cap or cap >= MAX_PEAK_CAPACITY:
                 return Fingerprints(*(a[0] for a in fp))
@@ -483,7 +503,8 @@ class SIA:
             one_cap = self._decide_cap(self._match_tiers())
         x, nv = self._to_device(samples)
         raw, n_pairs, n_peaks, n_hashes = recognize_on_device(
-            x, nv, index, **self._fp_kwargs(), n_songs=n_songs,
+            x, nv, index, **self._fp_kwargs(),
+            use_fused=_fused_ok(self.config), n_songs=n_songs,
             delta_min=delta_min, delta_range=delta_range,
             match_capacity=one_cap, topn=topn or self.config.topn,
             query_capacity=q_cap,
@@ -514,7 +535,8 @@ class SIA:
         probe's search bounds."""
         x, nv = self._to_device(samples)
         q_dev, *counts, lb, ub = fingerprint_probe_on_device(
-            x, nv, index, **self._fp_kwargs(), query_capacity=q_cap)
+            x, nv, index, **self._fp_kwargs(),
+            use_fused=_fused_ok(self.config), query_capacity=q_cap)
         counts = torch.stack([c.to(torch.int64) for c in counts]).cpu()
         n_pairs, n_peaks, n_hashes, total = (int(v) for v in counts)
         if n_peaks > self.config.peak_capacity or n_hashes > q_cap:

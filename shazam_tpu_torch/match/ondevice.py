@@ -4,7 +4,8 @@ The two-dispatch path (fingerprint, host dedup via numpy, match) pays two
 host<->device round trips plus host set arithmetic. This path keeps
 everything on the device and reads back once:
 
-1. fused fingerprint (K1 -> K2 -> K3 on CUDA),
+1. fingerprint: fused (K1 -> K2 -> K3 on CUDA) where ``use_fused``, the
+   plain dB pipeline otherwise (configurations the kernels do not take),
 2. query dedup on the device: sort the hash lanes by (hash, offset) with
    invalid lanes forced to the max key, then first-occurrence masks for
    unique (hash, offset) pairs and unique hashes (the reference's
@@ -22,7 +23,8 @@ import torch
 
 from ..index.search import query_key64
 from ..index.store import DeviceIndex
-from ..ops.fingerprint import Fingerprints, fingerprint_batch_fused
+from ..ops.fingerprint import (Fingerprints, fingerprint_batch,
+                               fingerprint_batch_fused)
 from .lookup import match_by_rank, query_total
 
 _M32 = 0xFFFFFFFF
@@ -103,16 +105,17 @@ def recognize_fingerprints(fp: Fingerprints, index: DeviceIndex, *,
 def _fingerprint_clip(samples: torch.Tensor, n_valid: torch.Tensor, *,
                       fs: int, wsize: int, hop: int, amp_min: float,
                       radius: int, fan_value: int, min_dt: int, max_dt: int,
-                      peak_capacity: int) -> Fingerprints:
-    """The fused fingerprint of a (1, N) clip, refusing clips whose frame
-    offsets do not fit the dedup's 16-bit packing."""
+                      peak_capacity: int, use_fused: bool) -> Fingerprints:
+    """The fingerprint of a (1, N) clip, fused or plain, refusing clips
+    whose frame offsets do not fit the dedup's 16-bit packing."""
     n_frames_max = (samples.shape[1] - wsize) // hop + 1
     if n_frames_max > 1 << 16:
         raise ValueError(
             f"clip spans {n_frames_max} frames > 2^16: the packed (ex, t1) "
             "dedup sort key would alias offsets. Use recognize_samples for "
             "clips longer than ~51 minutes.")
-    return fingerprint_batch_fused(
+    fp_fn = fingerprint_batch_fused if use_fused else fingerprint_batch
+    return fp_fn(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
         peak_capacity=peak_capacity)
@@ -124,18 +127,21 @@ def recognize_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
                         amp_min: float = 10.0, radius: int = 10,
                         fan_value: int = 5, min_dt: int = 0,
                         max_dt: int = 200, peak_capacity: int = 4096,
-                        n_songs: int, delta_min: int, delta_range: int,
+                        use_fused: bool = True, n_songs: int,
+                        delta_min: int, delta_range: int,
                         match_capacity: int = 16384, topn: int = 2,
                         query_capacity: int = 4096, rank_candidates: int = 0,
                         sparse_threshold: int = 16_000_000,
                         vote_rank: str = "pruned", expand_block: int = 0,
                         expand_runs: int = 0):
     """(1, N) f32 clip, (1,) valid length -> (RawMatch, n_pairs, n_peaks,
-    n_hashes_total) on the device; nothing is read back here."""
+    n_hashes_total) on the device; nothing is read back here.
+    ``use_fused=False`` fingerprints with the plain ``fingerprint_batch``,
+    for configurations outside the kernels' contract."""
     fp = _fingerprint_clip(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
-        peak_capacity=peak_capacity)
+        peak_capacity=peak_capacity, use_fused=use_fused)
     return recognize_fingerprints(
         fp, index, n_songs=n_songs, delta_min=delta_min,
         delta_range=delta_range, match_capacity=match_capacity, topn=topn,
@@ -150,6 +156,7 @@ def fingerprint_probe_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
                                 amp_min: float = 10.0, radius: int = 10,
                                 fan_value: int = 5, min_dt: int = 0,
                                 max_dt: int = 200, peak_capacity: int = 4096,
+                                use_fused: bool = True,
                                 query_capacity: int = 4096):
     """Fingerprint + dedup + the exact-total search, the query kept on the
     device.
@@ -162,7 +169,7 @@ def fingerprint_probe_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
     fp = _fingerprint_clip(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
-        peak_capacity=peak_capacity)
+        peak_capacity=peak_capacity, use_fused=use_fused)
     (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
      n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
     total, lb, ub = query_total(index, sort_hi, lo, ex, q_valid,

@@ -28,7 +28,8 @@ def peak_mask(power: torch.Tensor, amp_min: float = 10.0,
     """(B, T, 2049) f32 PSD power -> int32 (B, T, 65) constellation bits.
 
     Requires amp_min > 0: out-of-range cells read as zero power, which
-    must stay below the gate.
+    must stay below the gate. That also puts the gate above power 1, so
+    no gated cell is background and the kernel leaves the erosion out.
     """
     if amp_min <= 0:
         raise ValueError("the power-domain peak mask requires amp_min > 0")

@@ -9,6 +9,8 @@ Two pipelines, like the JAX package's:
 - ``fingerprint_batch_fused``, the hot path: power-domain spectrum (K1),
   bit-packed peak mask (K2) and ordered compaction (K3). CUDA tensors run
   the hand-written kernels, CPU tensors their plain twins; nothing else.
+  The kernels take window 4096 and peak radius 10 only: ``api.SIA`` sends
+  other configs to ``fingerprint_batch`` (``api._fused_ok``).
 - ``fingerprint_batch`` / ``fingerprint_samples``: the reference's own dB
   formulation in plain PyTorch (dB spectrum, dB gate, dB-zero background).
   It agrees with the fused path except on f32 dB-collision plateaus,
@@ -111,7 +113,8 @@ def fingerprint_batch(
     db = db_spectrogram(spectrogram_power_plain(x, nvf, fs=fs, wsize=wsize,
                                                 hop=hop))
     bits = pack_mask_bits(peak_mask_db(db, amp_min, radius))
-    times, freqs, n_peaks = compact_plain(bits, peak_capacity)
+    times, freqs, n_peaks = compact_plain(bits, peak_capacity,
+                                          n_bins=wsize // 2 + 1)
     return _hash(times, freqs, n_peaks, fan_value, min_dt, max_dt)
 
 

@@ -7,6 +7,7 @@ semantics, XOR the eroded zero background (``border_value=1``), strict
 
 The peak list travels between the K2 and K3 kernels as a bit-packed mask:
 int32 (B, T, 65), bit j of word w is bin 32 w + j (bins >= 2049 are 0).
+Other window sizes (the plain path only) take ceil(bins / 32) words.
 This module holds the plain twins of both kernels:
 
 - ``peak_mask_plain`` (K2, ``ops/cuda/peaks.py``): the power-domain mask,
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-MASK_WORDS = 65  # ceil(2049 / 32)
+MASK_WORDS = 65  # ceil(2049 / 32): the kernels' words, window 4096 only
 
 
 @functools.lru_cache(maxsize=8)
@@ -85,18 +86,20 @@ def peak_mask_db(db: torch.Tensor, amp_min: float,
 
 
 def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
-    """bool (B, T, F <= 2080) -> int32 (B, T, 65) bit words."""
+    """bool (B, T, F) -> int32 (B, T, ceil(F / 32)) bit words (65 at the
+    reference's 2049 bins)."""
     bsz, t, f = mask.shape
-    m = F.pad(mask.to(torch.int64), (0, MASK_WORDS * 32 - f))
+    n_words = -(-f // 32)
+    m = F.pad(mask.to(torch.int64), (0, n_words * 32 - f))
     weights = torch.bitwise_left_shift(
         torch.ones(32, dtype=torch.int64, device=mask.device),
         torch.arange(32, device=mask.device))
-    words = (m.view(bsz, t, MASK_WORDS, 32) * weights).sum(-1)
+    words = (m.view(bsz, t, n_words, 32) * weights).sum(-1)
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 def unpack_mask_bits(bits: torch.Tensor, n_bins: int = 2049) -> torch.Tensor:
-    """int32 (B, T, 65) bit words -> bool (B, T, n_bins)."""
+    """int32 (B, T, ceil(n_bins / 32)) bit words -> bool (B, T, n_bins)."""
     bsz, t, w = bits.shape
     shifts = torch.arange(32, device=bits.device)
     b = (bits.to(torch.int64)[..., None] >> shifts) & 1

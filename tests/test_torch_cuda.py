@@ -89,6 +89,67 @@ def test_spectrogram_edges_match_twin(cuda, n_frames, odd):
     assert diff.max() < 1e-3
 
 
+@pytest.mark.parametrize("n_frames", [1, 2, 15, 16, 17, 21, 37])
+def test_peak_mask_edges_match_twin(cuda, n_frames):
+    """K2 bit-exact at frame counts around its 16-frame tile and below its
+    21-frame window, on three rows: lognormal powers with cells just at
+    and just below the gate; all zero (a padded song); and quantized
+    powers (plateaus of equal values closer than 21 cells) with zero
+    stretches and power-1 patches across tile edges in both axes."""
+    from shazam_tpu_torch.ops.cuda import peaks
+    from shazam_tpu_torch.ops.peaks import peak_mask_plain, power_threshold
+
+    thr = np.float32(power_threshold(10.0))
+    below = np.nextafter(thr, np.float32(0))
+    rng = np.random.default_rng(n_frames)
+    p = rng.lognormal(2.0, 1.5, (3, n_frames, 2049)).astype(np.float32)
+    p[0, :, ::37] = thr
+    p[0, :, 5::41] = below
+    p[1] = 0
+    levels = np.array([0, 1, 0.5, 3, below, thr, 20, 50], np.float32)
+    p[2] = rng.choice(levels, size=(n_frames, 2049))
+    p[2, :, 120:140] = 0            # across the 128-bin tile edge
+    p[2, :, 600:660] = 0            # wider than the window: eroded cells
+    p[2, 14:18, 250:262] = 1.0      # across the 16-frame and 256-bin edges
+    p[2, :, 2030:] = 0              # into the last, one-bin tile
+    power = torch.from_numpy(p).to(cuda)
+    got = peaks.peak_mask(power, 10.0)
+    want = peak_mask_plain(power, 10.0)
+    torch.cuda.synchronize()
+    assert got.shape == (3, n_frames, 65)
+    assert torch.equal(got, want)
+    assert not got[1].any() and got[0].any()
+
+
+def test_custom_config_sia_on_cuda(cuda):
+    """A config outside the kernels' contract (22,050 Hz, window 2048,
+    radius 5) runs the plain pipeline on the card, launches no kernel,
+    and answers as the CPU does."""
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.config import FingerprintConfig
+    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
+
+    cfg = FingerprintConfig(sample_rate=22050, window_size=2048,
+                            peak_neighborhood_size=5, amp_min=5.0,
+                            fan_value=8)
+    songs = [(f"s{i}", synth_song(i, 6.0, fs=22050, seed=13))
+             for i in range(3)]
+    gpu, cpu = SIA(config=cfg), SIA(config=cfg, device="cpu")
+    kernels = (spectrogram.KERNEL, peaks.KERNEL, compact.KERNEL)
+    before = [k.launches for k in kernels]
+    gpu.ingest_arrays(songs)
+    cpu.ingest_arrays(songs)
+    clip = np.asarray(songs[2][1])[22050: 4 * 22050]
+    got = [gpu.recognize_clip(clip), gpu.recognize_samples([clip])]
+    assert [k.launches for k in kernels] == before
+    assert gpu.device.type == "cuda"
+    assert np.array_equal(gpu.index.key_hi, cpu.index.key_hi)
+    for out, want in zip(got, (cpu.recognize_clip(clip),
+                               cpu.recognize_samples([clip]))):
+        assert out["results"] == want["results"]
+        assert out["results"][0]["song_name"] == "s2"
+
+
 def test_fused_fingerprint_on_cuda_equals_cpu(cuda):
     from shazam_tpu_torch.ops.fingerprint import fingerprint_batch_fused
 

@@ -24,9 +24,12 @@ Phases (each raises on failure; any failure exits non-zero):
    few calls; ``bound_ms`` is the least time the card could take, the
    larger of the bytes over 3.35 TB/s and the operations over the peak
    rate of their type (K1: float64, 34 TFLOP/s; K2: float32 compares, 67
-   TFLOP/s), counted from this run's inputs; ``library_ms`` (K1 only) is
-   one ``torch.fft.rfft`` in float64 over frames windowed beforehand, the
-   cuFFT core of K1's work, which the port never calls. K2 and K3 have no
+   TFLOP/s), counted from this run's inputs; ``library_ms`` is one
+   PyTorch call the port never makes: for K1 ``torch.fft.rfft`` in
+   float64 over frames windowed beforehand, the cuFFT core of K1's work;
+   for K3 ``torch.nonzero`` of the same mask unpacked to bool (B, T,
+   2049) beforehand, which reads 32 times K3's input bytes and syncs the
+   host, so its ``library_device_ms`` is the number to compare. K2 has no
    such call;
 3. end to end: ``SIA(device="cuda")`` ingests the catalog (2,035 seeded
    30 s synthetic songs, synthesized by a process pool, in chunks of 256)
@@ -61,6 +64,11 @@ JSON line. ``--k1-baseline PATH`` builds PATH, an earlier
 its own and, in phase 2, holds it against K1's plain twin and times it
 in turns with the current K1. ``--k2-baseline PATH`` does the same for
 an earlier ``csrc/peaks.cu`` and K2 (bit-exact against its twin).
+``--k3-baseline PATH`` does it for the one-block-per-song
+``csrc/compact.cu`` of commit 11ffc6f, whose entry point
+``shz_compact(bits, B, T, cap, times, freqs, n_peaks, stream)`` takes no
+scratch (``K3_SONG_BLOCK_ARGTYPES``), through a call of its own that
+allocates the outputs (bit-exact against the twin).
 """
 
 from __future__ import annotations
@@ -116,6 +124,12 @@ KERNELS = (
     ("compact", "shazam_tpu_torch/csrc/compact.cu",
      "shazam_tpu/ops/pallas/compact.py:136"),
 )
+# the entry point of the one-block-per-song K3 (commit 11ffc6f, no
+# scratch): bits, batch, n_frames, capacity, times, freqs, n_peaks (+ the
+# stream)
+K3_SONG_BLOCK_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p]
 
 
 def _song(i: int) -> np.ndarray:
@@ -177,8 +191,17 @@ def _device_busy_ms(fn):
 
 
 def _device_ms(fn) -> float | None:
-    """Median device-busy ms of ``DEVICE_CALLS`` calls, each traced alone."""
-    runs = [_device_busy_ms(fn) for _ in range(DEVICE_CALLS)]
+    """Median device-busy ms of ``DEVICE_CALLS`` calls, each traced alone;
+    a trace that caught no device event (seen now and then for one short
+    kernel) is taken again, up to three times in all."""
+    runs = []
+    for _ in range(DEVICE_CALLS):
+        r = None
+        for _attempt in range(3):
+            r = _device_busy_ms(fn)
+            if r is not None:
+                break
+        runs.append(r)
     return None if None in runs else float(np.median(runs))
 
 
@@ -230,14 +253,30 @@ def _baselines(paths: dict) -> dict:
     out = {}
     for name, path in paths.items():
         current = _modules()[name].KERNEL
+        argtypes = (K3_SONG_BLOCK_ARGTYPES if name == "compact"
+                    else current.argtypes)
         lib_path = _build.BUILD_DIR / f"baseline_{name}_{Path(path).stem}.so"
         secs = _build.compile_library([Path(path).resolve()], lib_path)
         print(f"{name} baseline from {path}: built in {secs:.3f} s",
               flush=True)
         out[name] = _build.Kernel(
-            f"{name} (baseline)", current.symbol, current.argtypes,
+            f"{name} (baseline)", current.symbol, argtypes,
             loader=lambda lib_path=lib_path: ctypes.CDLL(str(lib_path)))
     return out
+
+
+def _k3_song_block(kernel, bits, cap):
+    """The one-block-per-song K3 (``K3_SONG_BLOCK_ARGTYPES``) on fresh
+    outputs."""
+    import torch
+
+    bsz, n_frames, _ = bits.shape
+    times = torch.empty((bsz, cap), dtype=torch.int32, device=bits.device)
+    freqs = torch.empty_like(times)
+    n_peaks = torch.empty((bsz,), dtype=torch.int32, device=bits.device)
+    kernel(bits.data_ptr(), bsz, n_frames, cap, times.data_ptr(),
+           freqs.data_ptr(), n_peaks.data_ptr())
+    return times, freqs, n_peaks
 
 
 def _wrappers() -> dict:
@@ -246,16 +285,17 @@ def _wrappers() -> dict:
 
 def check_kernels(device, baselines=None) -> dict:
     """Phase 2: each kernel against its plain twin at every main-path
-    shape; each of ``baselines`` ({kernel name: Kernel}, an earlier K1 or
-    K2) is held against the same twin and timed in turns with the current
-    kernel."""
+    shape; each of ``baselines`` ({kernel name: Kernel}, an earlier K1, K2
+    or K3) is held against the same twin and timed in turns with the
+    current kernel."""
     import torch
 
     from shazam_tpu_torch.audio import synth_song
     from shazam_tpu_torch.ops.cuda import compact as k3
     from shazam_tpu_torch.ops.cuda import peaks as k2
     from shazam_tpu_torch.ops.cuda import spectrogram as k1
-    from shazam_tpu_torch.ops.peaks import compact_plain, peak_mask_plain
+    from shazam_tpu_torch.ops.peaks import (compact_plain, peak_mask_plain,
+                                            unpack_mask_bits)
     from shazam_tpu_torch.ops.spectrogram import (db_spectrogram, hann_window,
                                                   spectrogram_power_plain)
 
@@ -306,18 +346,27 @@ def check_kernels(device, baselines=None) -> dict:
         got = k3.compact(bits, cap)
         ref = compact_plain(bits, cap)
         torch.cuda.synchronize()
-        k3_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref))
-        if k3_err:
-            raise AssertionError(f"K3 {label}: (times, freqs, n_peaks) differ")
+
+        def k3_err(got, who="K3"):
+            err = max(int((a.long() - b.long()).abs().max())
+                      for a, b in zip(got, ref))
+            if err:
+                raise AssertionError(
+                    f"{who} {label}: (times, freqs, n_peaks) differ")
+            return err
+
+        k3_e = k3_err(got)
         if int(got[2].max()) > cap:
             raise AssertionError(f"K3 {label}: peak capacity {cap} overflowed")
 
-        # the library yardstick: cuFFT's float64 rfft of every frame,
-        # windowed beforehand (the port never calls it)
+        # the library yardsticks (the port never calls them): cuFFT's
+        # float64 rfft of every frame, windowed beforehand; torch.nonzero
+        # of the mask, unpacked to bool beforehand
         n_frames = power.shape[1]
         win = hann_window(4096, device)
         frames = xs[:, : (n_frames - 1) * HOP + 4096].unfold(1, 4096, HOP)
         frames = frames.to(torch.float64) * win
+        mask = unpack_mask_bits(bits)
 
         bounds = kernel_bounds(n, nvf, n_frames, cap)
         timings = (
@@ -327,7 +376,8 @@ def check_kernels(device, baselines=None) -> dict:
             ("peak_mask", lambda: k2.peak_mask(power, 10.0),
              lambda: peak_mask_plain(power, 10.0), k2_e, None),
             ("compact", lambda: k3.compact(bits, cap),
-             lambda: compact_plain(bits, cap), k3_err, None),
+             lambda: compact_plain(bits, cap), k3_e,
+             lambda: torch.nonzero(mask)),
         )
         for name, kfn, pfn, e, lib_fn in timings:
             ms, plain_ms = _timed_pair(kfn, pfn)
@@ -347,20 +397,25 @@ def check_kernels(device, baselines=None) -> dict:
                   f"{rec['library_ms']} ms (device "
                   f"{rec['library_device_ms']}), max_abs_err {e}"
                   + (" dB" if name == "spectrogram_power" else ""), flush=True)
-        del frames
+        del frames, mask
         checks = {"spectrogram_power": (k1, k1_err, " dB"),
-                  "peak_mask": (k2, k2_err, "")}
+                  "peak_mask": (k2, k2_err, ""),
+                  "compact": (k3, k3_err, "")}
         calls = {name: kfn for name, kfn, *_ in timings}
         for name, kernel in (baselines or {}).items():
             mod, check, unit = checks[name]
             current, call = mod.KERNEL, calls[name]
-
-            def baseline(mod=mod, kernel=kernel, current=current, call=call):
-                mod.KERNEL = kernel
-                try:
-                    return call()
-                finally:
-                    mod.KERNEL = current
+            if name == "compact":   # its entry point takes no scratch
+                def baseline(kernel=kernel):
+                    return _k3_song_block(kernel, bits, cap)
+            else:
+                def baseline(mod=mod, kernel=kernel, current=current,
+                             call=call):
+                    mod.KERNEL = kernel
+                    try:
+                        return call()
+                    finally:
+                        mod.KERNEL = current
 
             err = check(baseline(), f"{name} baseline")
             ms, base_ms = _timed_pair(call, baseline)
@@ -680,6 +735,10 @@ def main(argv=None) -> int:
     ap.add_argument("--k2-baseline", metavar="PATH",
                     help="an earlier csrc/peaks.cu, timed in turns with "
                          "the current K2 in phase 2")
+    ap.add_argument("--k3-baseline", metavar="PATH",
+                    help="the one-block-per-song csrc/compact.cu (commit "
+                         "11ffc6f, K3_SONG_BLOCK_ARGTYPES), timed in turns "
+                         "with the current K3 in phase 2")
     args = ap.parse_args(argv)
 
     import torch
@@ -703,7 +762,7 @@ def main(argv=None) -> int:
           flush=True)
 
     paths = {"spectrogram_power": args.k1_baseline,
-             "peak_mask": args.k2_baseline}
+             "peak_mask": args.k2_baseline, "compact": args.k3_baseline}
     measured = check_kernels(
         device, _baselines({k: v for k, v in paths.items() if v}))
     if args.kernels_only:

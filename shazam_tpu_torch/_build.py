@@ -110,6 +110,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def raw_stream(device_index: int) -> int:
+    """The ``cudaStream_t`` of the device's current stream, read without
+    building a ``torch.cuda.Stream`` (which costs a few microseconds of
+    host time per lookup)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 class Kernel:
     """One C entry point of the kernel library, with a launch counter.
 
@@ -135,10 +144,14 @@ class Kernel:
         fn.restype = ctypes.c_int
         return fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, stream: int | None = None) -> None:
+        """Launch on ``stream`` (a raw ``cudaStream_t``), by default the
+        current device's current stream; a caller that already looked it
+        up passes it."""
         import torch
 
-        stream = torch.cuda.current_stream().cuda_stream
+        if stream is None:
+            stream = raw_stream(torch.cuda.current_device())
         rc = self._fn(*args, stream)
         if rc != 0:
             raise RuntimeError(

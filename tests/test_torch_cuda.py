@@ -121,6 +121,106 @@ def test_peak_mask_edges_match_twin(cuda, n_frames):
     assert not got[1].any() and got[0].any()
 
 
+def _bits(shape, peaks):
+    """int32 (B, T, 65) mask words with bits set at peaks = (b, t, f)
+    index arrays (bit j of word w is bin 32 w + j)."""
+    words = np.zeros(shape[:2] + (65,), np.uint32)
+    b, t, f = (np.asarray(a, np.int64) for a in peaks)
+    np.bitwise_or.at(words, (b, t, f // 32),
+                     np.left_shift(np.uint32(1), (f % 32).astype(np.uint32)))
+    return torch.from_numpy(words.view(np.int32))
+
+
+def _random_peaks(rng, bsz, n_frames, per_frame=2.5, rows=None):
+    n = int(per_frame * bsz * n_frames)
+    b = rng.integers(0, bsz, n) if rows is None else rng.choice(rows, n)
+    return b, rng.integers(0, n_frames, n), rng.integers(0, 2049, n)
+
+
+def _compact_case(case, tile):
+    """(bits, capacities) of one edge case; ``tile`` is K3's frames per
+    block. Row 0 is all zero. In the frame sweeps row 1 is random and row
+    2 holds a frame with all 2049 bits set and bit 2048 alone in frame 0;
+    the capacities are 1, n - 1, n and n + 5 for row 1's count n, and
+    row 1's count in its first tiles (a cut on a tile boundary)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    sweep = {"T0": 0, "T1": 1, "T_tile-1": tile - 1, "T_tile": tile,
+             "T_tile+1": tile + 1, "T1025": 1025, "T4608": 4608}
+    if case in sweep:
+        n_frames = sweep[case]
+        b, t, f = _random_peaks(rng, 3, max(n_frames, 1), rows=[1, 2])
+        extra = ([2] * 2050, [n_frames // 2] * 2049 + [0],
+                 list(range(2049)) + [2048])
+        b, t, f = (np.concatenate([a, e]) for a, e in zip((b, t, f), extra))
+        keep = t < n_frames
+        bits = _bits((3, n_frames), (b[keep], t[keep], f[keep]))
+        n1 = _count(bits[1])
+        cut = _count(bits[1, : tile * max(1, (n_frames // tile) // 2)])
+        return bits, sorted({1, max(n1 - 1, 1), max(n1, 1), n1 + 5,
+                             max(cut, 1)})
+    if case == "planted":
+        frames = [0, 5, 1023, 1024, 4095, 4096, 4500, 4607]
+        t = np.repeat(frames, 3)
+        f = np.tile([1, 1025, 2047], len(frames)) | 1   # odd bins
+        f[-1] = 2048
+        bits = _bits((2, 4608), ([1] * len(t), t, f))
+        return bits, [1, 9, len(t) - 1, len(t), 256]   # 9: frames < 1024
+    if case == "many_tiles":   # far more tiles than resident blocks
+        bits = _bits((64, 4608), _random_peaks(rng, 64, 4608,
+                                               rows=range(1, 64)))
+        return bits, [16384]
+    raise ValueError(case)
+
+
+def _count(bits):
+    """Set bits in an int32 mask-word tensor (on the CPU)."""
+    w = bits.cpu().numpy().view(np.uint32)
+    return int(np.unpackbits(w.view(np.uint8)).sum())
+
+
+@pytest.mark.parametrize("case", ["T0", "T1", "T_tile-1", "T_tile",
+                                  "T_tile+1", "T1025", "T4608", "planted",
+                                  "many_tiles"])
+def test_compact_edges_match_twin(cuda, case):
+    """K3 bit-exact against compact_plain at frame counts around its
+    tile, on all-zero rows, a full frame and bin 2048 alone, planted
+    peaks across frames 1023/1024 and 4095/4096, capacities that cut
+    the list (1, n - 1, on a tile boundary) or hold it (n), and with far
+    more tiles than the card holds blocks at once (the look-back's
+    forward progress)."""
+    from shazam_tpu_torch.ops.cuda import compact
+    from shazam_tpu_torch.ops.peaks import compact_plain
+
+    bits, caps = _compact_case(case, compact.TILE_FRAMES)
+    bits = bits.to(cuda)
+    for cap in caps:
+        got = compact.compact(bits, cap)
+        want = compact_plain(bits, cap)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (case, cap)
+    if bits.shape[1]:
+        assert int(got[2][0]) == 0 and int(got[2].max()) > 0
+
+
+def test_compact_repeat_calls_agree(cuda):
+    """Three calls in a row (each a new epoch of the same status words)
+    give identical outputs, equal to the twin; a smaller launch after a
+    larger one reuses the grown scratch."""
+    from shazam_tpu_torch.ops.cuda import compact
+    from shazam_tpu_torch.ops.peaks import compact_plain
+
+    rng = np.random.default_rng(11)
+    big = _bits((8, 767), _random_peaks(rng, 8, 767)).to(cuda)
+    small = big[:1, :127].contiguous()
+    want = [compact_plain(x, 8192) for x in (big, small)]
+    for _ in range(3):
+        for x, w in zip((big, small), want):
+            got = compact.compact(x, 8192)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, w))
+
+
 def test_custom_config_sia_on_cuda(cuda):
     """A config outside the kernels' contract (22,050 Hz, window 2048,
     radius 5) runs the plain pipeline on the card, launches no kernel,

@@ -10,14 +10,18 @@ Phases (each raises on failure; any failure exits non-zero):
 1. build: compile the hand-written kernels ``shazam_tpu_torch/csrc/*.cu``
    with nvcc (sm_90a) and load them;
 2. kernels: run K1 (spectrogram), K2 (peak mask) and K3 (compaction) on
-   the card at the main path's shapes -- ingest (8, 1,572,864) samples,
-   767 frames, peak capacity 16384; clip (1, 262,144), 127 frames,
-   capacity 8192; phase 4's 15 s clip (1, 786,432), 383 frames, capacity
-   8192 -- and hold each against its plain PyTorch twin on the
-   same inputs: K1 in dB, max |diff| < 1e-3 dB with exact zeros equal
-   (both compute in float64; the distance of an f32 FFT from the twin is
-   printed beside it, as the gap the bound has to tell apart); K2 and K3
-   bit-exact.
+   the card at every shape phases 3-5 give them (``_kernel_inputs``) --
+   ingest (8, 1,572,864) samples, 767 frames, peak capacity 16384; clip
+   (1, 262,144), 127 frames, capacity 8192; phase 4's 15 s clip (1,
+   786,432), 383 frames, capacity 8192; phase 5's batches of 15 s clips,
+   (8, 786,432) with 3 empty rows and (32, 786,432), capacity 8192; a
+   streamed file batch of stereo int16 and float32 rows and a resampled
+   48 kHz file, (8 or 1, 1,572,864), capacity 16384; a resampled 10 s
+   clip file (1, 524,288), capacity 8192 -- and hold each against its
+   plain PyTorch twin on the same inputs: K1 in dB, max |diff| < 1e-3 dB
+   with exact zeros equal (both compute in float64; the distance of an
+   f32 FFT from the twin is printed beside it, as the gap the bound has
+   to tell apart); K2 and K3 bit-exact.
    Kernel and plain times (``ms``, ``plain_ms``) are CUDA-event medians
    over back-to-back calls, host launch time included; ``device_ms`` is the
    kernel's own duration in a ``torch.profiler`` trace, the median of a
@@ -51,7 +55,29 @@ Phases (each raises on failure; any failure exits non-zero):
    give the default run's song, offset, total matches and input hashes,
    and its matched-hash count where both counted every row or both
    stopped at the same clamp. Last, each rank alone is timed on one
-   clip's query kept on the card.
+   clip's query kept on the card;
+5. files and batches, on phase 4's SIA: 128 seeded 30 s songs (ids 2,714
+   to 2,841) written as WAV files in a temporary directory, a third each
+   stereo int16 at 44.1 kHz, mono int16 synthesized at 48 kHz (ingest
+   resamples it) and mono IEEE float32, go in through
+   ``ingest_directory`` (batches of 8, a merge every 200,000 hashes: at
+   least 2 merges, at most 16 channels pending); a second pass must skip
+   all 128. The seconds in decode, resampling and merging are printed
+   beside the rest. ``recognize_file`` then answers 16 clips written as
+   files (8 from the new songs in their formats, 8 of phase 4's), each
+   right as in phase 3. ``recognize_batch`` sends phase 4's 32 clips in
+   four batches of 8, one of 32 and one of 5 padded to 8, under the
+   default and the dense config: each answer must equal
+   ``recognize_samples`` on the clip alone by phase 4's rule, and be
+   right. The batch dispatches at match_capacity, as the JAX package's
+   does, where the solo ladder starts at the fast tier, so two answers
+   decided under those two clamps are two lower bounds: each must be at
+   most the count of ``recognize_samples`` with every row counted.
+   Per-batch latency (p50, max) and the amortized latency per clip are
+   printed, and one batched match dispatch must make as many launches
+   (kernels, copies, memsets) at B = 32 as at B = 8, counted from the
+   host's runtime launch calls in ``torch.profiler`` traces
+   (``profiling.host_launches``). K1-K3 must launch in this phase.
 
 It prints the card's name and power limit, build seconds, per-kernel
 times, ingest seconds and rows, clip latencies and the idle shares, then
@@ -74,6 +100,7 @@ allocates the outputs (bit-exact against the twin).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import multiprocessing as mp
@@ -86,11 +113,6 @@ import numpy as np
 
 FS = 44100
 HOP = 2048
-INGEST_SHAPE = (8, 1_572_864, 16384, 30.0)  # batch, samples, capacity, song s
-CLIP_SHAPE = (1, 262_144, 8192, 5.0)
-BIG_CLIP_SHAPE = (1, 786_432, 8192, 15.0)   # phase 4's clips
-SHAPES = (("ingest", INGEST_SHAPE), ("clip", CLIP_SHAPE),
-          ("big_clip", BIG_CLIP_SHAPE))
 CLIP_S = 5.0
 # K1 and its plain twin both compute in float64 and round to f32 once, so
 # they may differ only by that rounding; an f32 FFT misses this by far
@@ -112,6 +134,15 @@ BIG_VARIANTS = (
                           escalation_policy="bounds")),
     ("dense", dict(sparse_vote_threshold=1 << 31)),
 )
+FILE_SONGS = 128       # phase 5's WAV files: songs 2,714 to 2,841
+FILE_FORMATS = ("stereo", "mono 48 kHz", "float32")
+FILE_BATCH = 8
+FILE_MERGE_HASHES = 200_000
+FILE_CLIP_S = 10.0
+# phase 5's recognize_batch runs over phase 4's 32 clips, as (batch size,
+# batches, pad_to_pow2): four batches of 8, one of 32, one of 5 padded to 8
+BATCH_PLAN = ((8, 4, False), (32, 1, False), (5, 1, True))
+BATCH_CONFIGS = (("default", {}), ("dense", dict(sparse_vote_threshold=1 << 31)))
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
 F64_FLOP_S = 34e12      # float64 outside the tensor cores
 F32_FLOP_S = 67e12      # float32 outside the tensor cores
@@ -171,17 +202,17 @@ def _timed_pair(kernel_fn, plain_fn, reps: int = 5):
 
 def _device_busy_ms(fn):
     """Milliseconds in which the card ran any kernel, copy or memset that
-    ``fn`` issued (the union of their intervals in a ``torch.profiler``
-    trace), or None when the trace holds no device event."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``fn`` issued: the union of their intervals in a ``torch.profiler``
+    trace (``profiling.device_events``: a complete one, else the one that
+    lost the fewest kernel records, a lower bound then, said so in the
+    output), or None when it holds no device event."""
+    from shazam_tpu_torch.profiling import device_events
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    events, lost = device_events(fn)
+    if lost:
+        print(f"  (that trace lost {lost} kernel records: the busy time "
+              "below is a lower bound)", flush=True)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -191,17 +222,9 @@ def _device_busy_ms(fn):
 
 
 def _device_ms(fn) -> float | None:
-    """Median device-busy ms of ``DEVICE_CALLS`` calls, each traced alone;
-    a trace that caught no device event (seen now and then for one short
-    kernel) is taken again, up to three times in all."""
-    runs = []
-    for _ in range(DEVICE_CALLS):
-        r = None
-        for _attempt in range(3):
-            r = _device_busy_ms(fn)
-            if r is not None:
-                break
-        runs.append(r)
+    """Median device-busy ms of ``DEVICE_CALLS`` calls, each traced
+    alone."""
+    runs = [_device_busy_ms(fn) for _ in range(DEVICE_CALLS)]
     return None if None in runs else float(np.median(runs))
 
 
@@ -283,6 +306,43 @@ def _wrappers() -> dict:
     return {name: mod.KERNEL for name, mod in _modules().items()}
 
 
+def _kernel_inputs():
+    """Phase 2's inputs, [(label, rows, peak capacity)], each padded to its
+    bucket as the main path pads it: phase 3's ingest (8 x 30 s songs)
+    and 5 s clip, phase 4's 15 s clip, and phase 5's shapes --
+    recognize_batch's 5 clips padded with 3 empty rows (pad_to_pow2) and
+    its 32 clips, a streamed file batch of stereo int16 and float32 rows,
+    a resampled 48 kHz file, and a resampled 10 s clip file as
+    recognize_file reads them."""
+    import tempfile
+
+    from shazam_tpu_torch.audio import read, synth_song
+    from shazam_tpu_torch.audio.resample import resample_channels
+
+    songs = [synth_song(i, 30.0, seed=i) for i in range(8)]
+    clips = [synth_song(i, BIG_CLIP_S, seed=i) for i in range(32)]
+    with tempfile.TemporaryDirectory() as tmp:
+        def decoded(i, secs=30.0):
+            samples, fs, kind = _file_song(i)
+            path = os.path.join(tmp, f"{i}_{secs}.wav")
+            _write_file(path, samples[: int(secs * fs)], fs, kind)
+            channels, fs, _ = read(path)
+            return (resample_channels(channels, fs, FS) if fs != FS
+                    else channels)
+
+        # songs 0, 3, 6 are stereo, 2 and 5 float32: 8 rows at 44.1 kHz
+        streamed = [ch for i in (0, 2, 3, 5, 6) for ch in decoded(i)]
+        resampled, file_clip = decoded(1), decoded(4, FILE_CLIP_S)
+    return (("ingest", songs, 16384),
+            ("clip", [synth_song(0, CLIP_S, seed=0)], 8192),
+            ("big_clip", clips[:1], 8192),
+            ("batch_8_padded", clips[:5] + [np.zeros(0, np.int16)] * 3, 8192),
+            ("batch_32", clips, 8192),
+            ("file_batch", streamed, 16384),
+            ("file_resampled", resampled, 16384),
+            ("file_clip", file_clip, 8192))
+
+
 def check_kernels(device, baselines=None) -> dict:
     """Phase 2: each kernel against its plain twin at every main-path
     shape; each of ``baselines`` ({kernel name: Kernel}, an earlier K1, K2
@@ -290,24 +350,22 @@ def check_kernels(device, baselines=None) -> dict:
     current kernel."""
     import torch
 
-    from shazam_tpu_torch.audio import synth_song
+    from shazam_tpu_torch.api import _bucket_len, _pad_rows
     from shazam_tpu_torch.ops.cuda import compact as k3
     from shazam_tpu_torch.ops.cuda import peaks as k2
     from shazam_tpu_torch.ops.cuda import spectrogram as k1
     from shazam_tpu_torch.ops.peaks import (compact_plain, peak_mask_plain,
                                             unpack_mask_bits)
     from shazam_tpu_torch.ops.spectrogram import (db_spectrogram, hann_window,
-                                                  spectrogram_power_plain)
+                                                  spectrogram_power_plain,
+                                                  valid_frames)
 
     out = {name: {} for name, _, _ in KERNELS}
-    for label, (bsz, n, cap, secs) in SHAPES:
-        x = np.zeros((bsz, n), np.float32)
-        nvf = np.zeros(bsz, np.int32)
-        for i in range(bsz):
-            s = synth_song(i, secs, seed=i).astype(np.float32)
-            x[i, : len(s)] = s
-            nvf[i] = (len(s) - 4096) // HOP + 1
-        xs = torch.from_numpy(x).to(device)
+    for label, rows, cap in _kernel_inputs():
+        batch, n_valid = _pad_rows(rows, _bucket_len(max(map(len, rows))))
+        n = batch.shape[1]
+        xs = torch.from_numpy(batch).to(device).to(torch.float32)
+        nvf = valid_frames(torch.from_numpy(n_valid), 4096, HOP).numpy()
         nv = torch.from_numpy(nvf).to(device)
 
         power = k1.spectrogram_power(xs, nv)
@@ -391,7 +449,7 @@ def check_kernels(device, baselines=None) -> dict:
                     [_event_ms(lib_fn) for _ in range(5)]))
                 rec["library_device_ms"] = _device_ms(lib_fn)
             out[name][label] = rec
-            print(f"kernel {name} {label} {tuple(x.shape)}: {ms:.4f} ms, "
+            print(f"kernel {name} {label} {tuple(batch.shape)}: {ms:.4f} ms, "
                   f"device {rec['device_ms']} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}), plain {plain_ms:.4f} ms, library "
                   f"{rec['library_ms']} ms (device "
@@ -563,19 +621,26 @@ def _answer(res):
             "input_hashes": res["input_hashes"]}
 
 
-def _same_answer(want, got) -> bool:
+def _same_answer(want, got, exact=None) -> bool:
     """Song, offset, total matches and input hashes equal, and the
     matched hash count where both runs counted every row or both accepted
     a clamped expansion as provably decided (partial_counts: a variant
     that decides at the default's fast tier with its row-by-row expansion
     excludes the same runs). A decided run against an exact one reports
-    a lower bound, which may not exceed the exact count."""
+    a lower bound, which may not exceed the exact count. Two decided runs
+    clamped at different tiers (phase 5: the batch dispatches at
+    match_capacity, the solo ladder starts at the fast tier) report two
+    lower bounds, each at most the count of ``exact``, a run that counted
+    every row."""
     keys = ("song_id", "offset", "total_matches", "input_hashes")
     if any(want[k] != got[k] for k in keys):
         return False
     if want["partial"] != got["partial"]:
         lower, exact = ((want, got) if want["partial"] else (got, want))
         return lower["matched"] <= exact["matched"]
+    if want["partial"] and exact is not None:
+        return (not exact["partial"]
+                and max(want["matched"], got["matched"]) <= exact["matched"])
     return want["matched"] == got["matched"]
 
 
@@ -613,7 +678,7 @@ def _match_half(sia, clip, on_card) -> dict:
         busy = _device_busy_ms(fn)
         out[name] = {"ms": ms, "device_busy_ms": busy}
         print(f"match half {name}: {ms:.4f} ms per call (CUDA events), "
-              f"device busy {busy:.4f} ms", flush=True)
+              f"device busy {busy} ms", flush=True)
     return out
 
 
@@ -623,7 +688,7 @@ def big_catalog(sia, n_base: int, n_total: int, n_clips: int, n_check: int,
     ``sparse_vote_threshold``, and recognize seeded BIG_CLIP_S clips
     through the sparse ranks; then re-run the first ``n_check`` clips
     under each rank / expansion / escalation variant and require the
-    default run's answers."""
+    default run's answers. Returns ([(song, frame, clip)], a report)."""
     import dataclasses
 
     import torch
@@ -709,7 +774,8 @@ def big_catalog(sia, n_base: int, n_total: int, n_clips: int, n_check: int,
     finally:
         sia.config = base
     match_half = _match_half(sia, clip_of(*picks[0]), on_card)
-    return {"songs": n_total, "rows": rows, "index_mb": index_mb,
+    clips = [(sid, frame, clip_of(sid, frame)) for sid, frame in picks]
+    return clips, {"songs": n_total, "rows": rows, "index_mb": index_mb,
             "vote_bins": bins, "ingest_wall_s": ingest_s, "ingest_s": sia_s,
             "clip_p50_ms": 1e3 * float(np.median(lat)),
             "clip_max_ms": 1e3 * max(lat), "two_pass_clips": two_pass,
@@ -720,12 +786,261 @@ def big_catalog(sia, n_base: int, n_total: int, n_clips: int, n_check: int,
             "match_half": match_half}
 
 
+def _file_song(i: int):
+    """Phase 5's song ``i`` as (samples, rate, format): by i % 3 a stereo
+    int16 file at 44.1 kHz (right channel 0.7x the left), a mono int16
+    song synthesized at 48 kHz, or a mono IEEE float32 file at 44.1 kHz."""
+    from shazam_tpu_torch.audio import synth_song
+
+    kind = FILE_FORMATS[i % 3]
+    fs = 48000 if kind == "mono 48 kHz" else FS
+    return synth_song(i, 30.0, fs=fs, seed=i), fs, kind
+
+
+def _write_file(path: str, samples: np.ndarray, fs: int, kind: str) -> None:
+    from shazam_tpu_torch.audio.io import write_float_wav, write_wav
+
+    if kind == "stereo":
+        samples = np.stack([samples, (samples * 0.7).astype(samples.dtype)])
+    (write_float_wav if kind == "float32" else write_wav)(path, samples, fs)
+
+
+@contextlib.contextmanager
+def _timed(owner, names, acc: dict):
+    """Time every call of ``owner``'s attributes ``names`` into acc[name]
+    (seconds, summed) until the block ends."""
+    saved = {name: getattr(owner, name) for name in names}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[name] = acc.get(name, 0.0) + time.perf_counter() - t
+        return timed
+
+    for name, fn in saved.items():
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield acc
+    finally:
+        for name, fn in saved.items():
+            setattr(owner, name, fn)
+
+
+def _right(res, sid: int, secs: float) -> bool:
+    top = res["results"][0] if res["results"] else None
+    return (top is not None and top["song_name"] == f"song{sid:05d}"
+            and abs(top["offset_seconds"] - secs) < 0.1)
+
+
+def files_and_batches(sia, first_id: int, n_files: int, big_clips, seed: int,
+                      workers: int,
+                      merge_hashes: int = FILE_MERGE_HASHES) -> dict:
+    """Phase 5 on phase 4's SIA: ingest ``n_files`` 30 s songs from WAV
+    files in three formats with ``ingest_directory`` (and again, which
+    must skip them all), ``recognize_file`` 16 clips written as files,
+    then ``recognize_batch`` phase 4's clips in batches of 8, 32 and 5
+    (padded to 8) under the default and the dense config, each answer held
+    against ``recognize_samples`` on the clip alone. Last, the device
+    launches of one batched match dispatch at B = 8 and B = 32, which must
+    be equal."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from shazam_tpu_torch import api
+    from shazam_tpu_torch.audio import mp3
+    from shazam_tpu_torch.profiling import host_launches
+
+    on_card = sia.device.type == "cuda"
+    ids = list(range(first_id, first_id + n_files))
+    rng = np.random.default_rng(seed + 2)
+    clip_ids = sorted({ids[k * len(ids) // 8] for k in range(8)})
+    max_frame = (int(30.0 * FS) - int(FILE_CLIP_S * FS)) // HOP
+    rows_before = sia.index.n_hashes
+    print(f"libmpg123 {'present' if mp3.available() else 'absent'} "
+          "(MP3 is not exercised here)", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        kept = {}
+        with mp.get_context("spawn").Pool(workers) as pool:
+            for i, song in zip(ids, pool.imap(_file_song, ids, chunksize=4)):
+                _write_file(os.path.join(tmp, f"song{i:05d}.wav"), *song)
+                if i in clip_ids:
+                    kept[i] = song
+            pool.close()
+            pool.join()
+        out["synth_write_s"] = time.perf_counter() - t0
+        acc: dict = {}
+        with _timed(api, ("read", "resample_channels"), acc), \
+                _timed(api.SIA, ("_merge_songs",), acc):
+            stats = sia.ingest_directory(tmp, batch_size=FILE_BATCH,
+                                         merge_chunk_hashes=merge_hashes)
+        decode_s = acc.get("read", 0.0) + acc.get("resample_channels", 0.0)
+        merge_s = acc.get("_merge_songs", 0.0)
+        print(f"ingest_directory: {n_files} files x 30 s "
+              f"({', '.join(FILE_FORMATS)}), {stats['hashes']} hashes, "
+              f"{stats['merges']} merges, peak pending channels "
+              f"{stats['peak_pending_channels']}, {stats['seconds']:.3f} s: "
+              f"decode {acc.get('read', 0.0):.3f} s + resample "
+              f"{acc.get('resample_channels', 0.0):.3f} s, merge "
+              f"{merge_s:.3f} s, fingerprint and the rest "
+              f"{stats['seconds'] - decode_s - merge_s:.3f} s "
+              f"({n_files * 0.5 / stats['seconds']:.3f} audio-min/s); "
+              f"synthesis and writing {out['synth_write_s']:.3f} s",
+              flush=True)
+        if (stats["ingested"] != n_files or stats["overflowed"]
+                or stats["merges"] < 2
+                or stats["peak_pending_channels"] > 2 * FILE_BATCH):
+            raise AssertionError(f"ingest_directory stats {stats}")
+        again = sia.ingest_directory(tmp, batch_size=FILE_BATCH)
+        print(f"ingest_directory again: skipped {again['skipped']}, "
+              f"ingested {again['ingested']}", flush=True)
+        if again["skipped"] != n_files or again["ingested"]:
+            raise AssertionError(f"second ingest_directory {again}")
+        counts = sia.catalog.counts()
+        if (counts["n_songs"] != first_id + n_files
+                or sia.index.n_hashes != rows_before + stats["hashes"]
+                or counts["n_hashes"] != sia.index.n_hashes):
+            raise AssertionError(f"catalog {counts}, index rows "
+                                 f"{sia.index.n_hashes}")
+        out.update(files=n_files, formats=list(FILE_FORMATS),
+                   ingest=stats, decode_s=decode_s, merge_s=merge_s)
+
+        jobs = []    # (path, song, offset s): new files' clips, phase 4's
+        for i in clip_ids:
+            samples, fs, kind = kept[i]
+            secs = int(rng.integers(0, max_frame + 1)) * HOP / FS
+            start = round(secs * fs)
+            path = os.path.join(tmp, f"clip{i}.wav")
+            _write_file(path, samples[start: start + int(FILE_CLIP_S * fs)],
+                        fs, kind)
+            jobs.append((path, i, secs))
+        for sid, frame, clip in big_clips[:8]:
+            path = os.path.join(tmp, f"clip{sid}_{frame}.wav")
+            _write_file(path, clip, FS, "mono")
+            jobs.append((path, sid, frame * HOP / FS))
+        lat, wrong = [], []
+        for path, sid, secs in jobs:
+            t = time.perf_counter()
+            res = sia.recognize_file(path)
+            lat.append(time.perf_counter() - t)
+            if not _right(res, sid, secs):
+                wrong.append((os.path.basename(path), res["results"][:1]))
+        print(f"recognize_file: {len(jobs)} clips ({len(clip_ids)} of "
+              f"{FILE_CLIP_S} s from the new files, the rest of {BIG_CLIP_S} "
+              "s from phase 4), p50 "
+              f"{1e3 * float(np.median(lat)):.3f} ms, wrong {len(wrong)}",
+              flush=True)
+        if wrong:
+            raise AssertionError(f"recognize_file wrong: {wrong[:4]}")
+        out["recognize_file"] = {"clips": len(jobs),
+                                 "p50_ms": 1e3 * float(np.median(lat))}
+
+    clips = [c for _sid, _frame, c in big_clips]
+    base = sia.config
+    out["batches"] = {}
+    exact = {}    # clip -> recognize_samples with every row counted
+
+    def same(j, got):
+        want = solo[j]
+        if (want["partial"] and got["partial"]
+                and want["matched"] != got["matched"]):
+            if j not in exact:
+                cfg = sia.config
+                sia.config = dataclasses.replace(base,
+                                                 decision_escalation=False)
+                try:
+                    exact[j] = _answer(sia.recognize_samples([clips[j]]))
+                finally:
+                    sia.config = cfg
+            return _same_answer(want, got, exact[j])
+        return _same_answer(want, got)
+
+    try:
+        for name, kw in BATCH_CONFIGS:
+            sia.config = dataclasses.replace(base, **kw)
+            solo = [_answer(sia.recognize_samples([c])) for c in clips]
+            sia.recognize_batch(clips[:FILE_BATCH])    # warm-up
+            lat, sizes, res_all = [], [], []
+            for batch, count, pad in BATCH_PLAN:
+                for lo in range(0, min(batch * count, len(clips)), batch):
+                    part = range(lo, min(lo + batch, len(clips)))
+                    t = time.perf_counter()
+                    res = sia.recognize_batch([clips[j] for j in part],
+                                              pad_to_pow2=pad)
+                    lat.append(time.perf_counter() - t)
+                    sizes.append(len(part))
+                    res_all += res
+                    bad = [(j, solo[j], _answer(r), exact.get(j))
+                           for j, r in zip(part, res)
+                           if not (same(j, _answer(r))
+                                   and _right(r, big_clips[j][0],
+                                              big_clips[j][1] * HOP / FS))]
+                    if len(res) != len(part) or bad:
+                        raise AssertionError(
+                            f"recognize_batch {name}, batch {batch}: "
+                            f"{bad[:3]}")
+            per_clip = [t / n for t, n in zip(lat, sizes)]
+            pb = sia.prepare_batch(clips)
+            q = sia._query_to_device(pb.stack)
+            n_max = max(map(len, clips))
+
+            def dispatch(bq, q=q, n_max=n_max):
+                return lambda: sia._batch_match(
+                    [a[:bq] for a in q], n_max, sia.config.match_capacity)
+
+            launches = busy = None
+            if on_card:
+                for bq in (8, 32):
+                    dispatch(bq)()
+                torch.cuda.synchronize()
+                traced = {bq: host_launches(dispatch(bq)) for bq in (8, 32)}
+                launches = {bq: t[0] for bq, t in traced.items()}
+                busy = {bq: _device_busy_ms(dispatch(bq)) for bq in (8, 32)}
+                print(f"batched dispatch, {name}: launch calls "
+                      f"{ {bq: dict(t[1]) for bq, t in traced.items()} }",
+                      flush=True)
+                if launches[8] != launches[32]:
+                    raise AssertionError(
+                        f"batched dispatch launches grow with the batch: "
+                        f"{launches}")
+            rec = {"batch_p50_ms": 1e3 * float(np.median(lat)),
+                   "batch_max_ms": 1e3 * max(lat),
+                   "clip_amortized_p50_ms": 1e3 * float(np.median(per_clip)),
+                   "batches": len(lat), "dispatch_launches": launches,
+                   "dispatch_device_busy_ms": busy,
+                   "partial_batch_clips": sum(
+                       r["partial_counts"] for r in res_all),
+                   "exact_counts_taken": len(exact)}
+            out["batches"][name] = rec
+            print(f"recognize_batch {name}: {len(lat)} batches of sizes "
+                  f"{sizes} (the 5 padded to 8) of {BIG_CLIP_S} s clips, "
+                  "all equal to recognize_samples; "
+                  f"per batch p50 {rec['batch_p50_ms']:.3f} ms, max "
+                  f"{rec['batch_max_ms']:.3f} ms; decided under a clamp "
+                  f"{rec['partial_batch_clips']} of {len(res_all)} answers, "
+                  f"exact counts taken for {len(exact)} clips so far; "
+                  f"per clip amortized p50 "
+                  f"{rec['clip_amortized_p50_ms']:.3f} ms; one dispatch at "
+                  f"B = 8 / 32: device launches {launches}, device busy "
+                  f"{busy} ms", flush=True)
+    finally:
+        sia.config = base
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--songs", type=int, default=2035)
     ap.add_argument("--clips", type=int, default=32)
     ap.add_argument("--big-songs", type=int, default=BIG_SONGS)
     ap.add_argument("--big-clips", type=int, default=32)
+    ap.add_argument("--file-songs", type=int, default=FILE_SONGS)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernel checks)")
@@ -775,9 +1090,11 @@ def main(argv=None) -> int:
     def launched(label, phase):
         for k in wrappers.values():
             k.launches = 0
+        t = time.perf_counter()
         out = phase()
         counts = {name: k.launches for name, k in wrappers.items()}
-        print(f"launches ({label}): {counts}", flush=True)
+        print(f"launches ({label}): {counts}; phase "
+              f"{time.perf_counter() - t:.3f} s", flush=True)
         idle = [name for name, n in counts.items() if n == 0]
         if idle:
             raise AssertionError(f"kernels not launched by {label}: {idle}")
@@ -785,9 +1102,11 @@ def main(argv=None) -> int:
 
     (sia, e2e), launches = launched("main path", lambda: end_to_end(
         device, args.songs, args.clips, args.seed, workers))
-    big, launches_big = launched("big catalog", lambda: big_catalog(
+    (big_clips, big), launches_big = launched("big catalog", lambda: big_catalog(
         sia, args.songs, args.big_songs, args.big_clips, CHECKED_CLIPS,
         args.seed, workers))
+    files, launches_files = launched("files and batches", lambda: files_and_batches(
+        sia, args.big_songs, args.file_songs, big_clips, args.seed, workers))
 
     report = []
     for name, source, replaces in KERNELS:
@@ -797,14 +1116,17 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "launches_big_catalog": launches_big[name],
-            "max_abs_err": max(m[label]["err"] for label, _ in SHAPES),
+            "launches_files_batches": launches_files[name],
+            "max_abs_err": max(r["err"] for r in m.values()),
             **{k: m["ingest"][k] for k in (
                 "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
                 "library_ms")},
             "shapes": m,
         })
+    print(f"whole run {time.perf_counter() - t0:.3f} s", flush=True)
     print(json.dumps({"kernels": report, "end_to_end": e2e,
-                      "big_catalog": big}), flush=True)
+                      "big_catalog": big, "files_and_batches": files}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -19,10 +19,24 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   (``config.escalation_policy``): decided-first, one dispatch at the
   decide tier that keeps its search bounds for a fitted re-dispatch, or
   bounds-first, an exact-total probe and one fitted dispatch.
+- ``SIA.ingest_files`` / ``ingest_directory``: streaming ingest of audio
+  files. A header probe plans (file, channel) rows by bucket; the host
+  decodes batch k+1 while the device fingerprints batch k; a song is
+  recorded when its last channel comes back, and finished songs merge
+  into the index every ``merge_chunk_hashes`` hashes. Files at another
+  sample rate are resampled to ``config.sample_rate`` (``resample=True``)
+  or rejected. ``ingest_channels`` ingests one song from decoded
+  channels.
+- ``SIA.recognize_file``: decode (and resample), then
+  ``recognize_samples``.
+- ``SIA.recognize_batch`` = ``prepare_batch`` (all clips fingerprinted as
+  one batch) + ``match_prepared_batch`` (one batched match dispatch,
+  ``match/batched.py``, then per-clip escalation and alignment): per-clip
+  results equal ``recognize_samples`` on each clip alone.
 - ``save_index``/``load_index``: the JAX package's flat ``.npz`` format.
 
 Not ported yet: the device-resident and spanned stores, the unique-view
-search, batch/serve, streaming, apriori.
+search, serve, streaming, apriori.
 
 Shapes are bucketed (padded to the next 2^18-sample multiple), as in the
 JAX package, so both packages see the same frame counts.
@@ -33,23 +47,94 @@ from __future__ import annotations
 import hashlib
 import os
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .audio.io import find_files, probe, read, unique_file_hash
+from .audio.resample import resample_channels
 from .config import DEFAULT_CONFIG, FingerprintConfig
 from .device import resolve_device
 from .index.catalog import SongCatalog
 from .index.store import DeviceIndex, FingerprintIndex, build_index, merge_into
 from .match.align import align_results
-from .match.lookup import match_by_rank, query_total, raw_to_host
+from .match.batched import (batched_raw_to_host, match_queries_batched,
+                            query_totals_batched)
+from .match.lookup import RawMatch, match_by_rank, query_total, raw_to_host
 from .match.ondevice import fingerprint_probe_on_device, recognize_on_device
-from .match.prepare import prepare_query, q_frames_for_max_offset
+from .match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
 from .ops.fingerprint import (Fingerprints, fingerprint_batch,
                               fingerprint_batch_fused, union_pairs)
 
 MAX_PEAK_CAPACITY = 1 << 22
+QUERY_COLUMNS = ("hi", "lo", "ex", "t", "valid", "first")
+# the JAX package's 4 GB batch guards, kept so that both packages make the
+# same dispatch decisions: the bounds-first base tier's expansion stream
+# (about 24 bytes a slot per clip) and the whole-batch re-dispatch (a
+# hashed candidate table plus six expansion arrays per clip)
+BATCH_GUARD_BYTES = 4 << 30
+
+
+class _PreparedBatch(NamedTuple):
+    """``SIA.prepare_batch`` output, host-resident except the optional
+    stage-1 probe's query columns and bounds: everything
+    ``match_prepared_batch`` needs."""
+
+    clips: List[np.ndarray]        # original clips (retry paths need them)
+    queries: List[QueryPairs]      # per-row queries (align needs n_pairs)
+    stack: Dict[str, np.ndarray]   # padded (B, q_cap) query columns
+    peak_over: set                 # clip ids whose peaks overflowed
+    topn: Optional[int]
+    match_capacity: Optional[int]  # base-tier override
+    fingerprint_time: float
+    # bounds-first big indexes: the uploaded query columns, each clip's
+    # exact total and the (lb, ub) search bounds on the device; None when
+    # the probe does not apply
+    q_dev: Optional[Tuple] = None
+    probe_totals: Optional[np.ndarray] = None
+    probe_bounds: Optional[Tuple] = None
+
+
+def _start_download(fp: Fingerprints):
+    """Start one device->host copy of a batch's fingerprints. On the card
+    it lands in pinned memory behind the work already queued, and the
+    host goes on; ``_finish_download`` waits for it."""
+    bsz, lanes = fp.hi.shape
+    flat = torch.cat([
+        torch.stack([fp.hi, fp.lo, fp.ex, fp.t1,
+                     fp.valid.to(torch.int64)]).reshape(-1),
+        fp.n_peaks.to(torch.int64)])
+    if flat.device.type != "cuda":
+        return flat, None, (bsz, lanes)
+    host = torch.empty(flat.shape, dtype=torch.int64, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done, (bsz, lanes)
+
+
+def _finish_download(pending) -> Fingerprints:
+    """The host Fingerprints of a ``_start_download``."""
+    host, done, (bsz, lanes) = pending
+    if done is not None:
+        done.synchronize()
+    cols = host[: 5 * bsz * lanes].view(5, bsz, lanes)
+    return Fingerprints(cols[0], cols[1], cols[2], cols[3], cols[4].bool(),
+                        host[5 * bsz * lanes:].to(torch.int32))
+
+
+def _pad_rows(channels: Sequence[np.ndarray], blen: int):
+    """(len(channels), blen) zero-padded batch and valid lengths: int16
+    when every channel is int16 (half the upload; the cast to float32 on
+    the device is exact), else float32."""
+    all_int = all(ch.dtype == np.int16 for ch in channels)
+    batch = np.zeros((len(channels), blen), np.int16 if all_int else np.float32)
+    n_valid = np.zeros(len(channels), np.int32)
+    for row, ch in enumerate(channels):
+        batch[row, : len(ch)] = ch
+        n_valid[row] = len(ch)
+    return batch, n_valid
 
 
 def _fused_ok(config: FingerprintConfig) -> bool:
@@ -76,13 +161,18 @@ class SIA:
     sqlite) and the fingerprint index (host numpy, uploaded to the device
     on first query after each change). The device is the card unless
     ``device="cpu"`` asks for the CPU; without a card, ``"cuda"`` raises.
+    Audio files at another sample rate are polyphase-resampled to
+    ``config.sample_rate`` (``resample=True``) or rejected with a
+    ``ValueError`` (``resample=False``).
     """
 
     def __init__(self, config: FingerprintConfig = DEFAULT_CONFIG,
                  catalog_path: str = ":memory:",
-                 index: Optional[FingerprintIndex] = None, device="cuda"):
+                 index: Optional[FingerprintIndex] = None, device="cuda",
+                 resample: bool = True):
         self.config = config
         self.device = resolve_device(device)
+        self.resample = resample
         self.catalog = SongCatalog(catalog_path)
         self.catalog.delete_unfingerprinted()  # reference crash recovery
         self.index = index or build_index([], n_songs=0)
@@ -104,6 +194,50 @@ class SIA:
     # ------------------------------------------------------------------ #
     # ingest
     # ------------------------------------------------------------------ #
+    def ingest_directory(self, path: str,
+                         extensions: Sequence[str] = (".wav",),
+                         limit: Optional[float] = None, batch_size: int = 8,
+                         song_peak_capacity: Optional[int] = None,
+                         verbose: bool = False,
+                         merge_chunk_hashes: int = 4_000_000) -> Dict:
+        """Fingerprint every matching file under ``path`` into the index,
+        in sorted path order. Resumable: files whose SHA-1 is already
+        fingerprinted are skipped (reference ``__init__.py:344-349``)."""
+        files = sorted(p for p, _ in find_files(path, list(extensions)))
+        return self.ingest_files(
+            files, limit=limit, batch_size=batch_size,
+            song_peak_capacity=song_peak_capacity, verbose=verbose,
+            merge_chunk_hashes=merge_chunk_hashes)
+
+    def ingest_files(self, files: Sequence[str], limit: Optional[float] = None,
+                     batch_size: int = 8,
+                     song_peak_capacity: Optional[int] = None,
+                     verbose: bool = False,
+                     merge_chunk_hashes: int = 4_000_000) -> Dict:
+        """Streaming ingest of audio files: host memory stays O(batch).
+
+        Decode and fingerprinting overlap (the host decodes batch k+1
+        while the device runs batch k), and the index absorbs finished
+        songs in sorted-run merges (``merge_into``) every
+        ``merge_chunk_hashes`` hashes. ``limit`` keeps the first seconds
+        of each file. Stats: ``files``, ``skipped`` (already ingested, by
+        file SHA-1), ``ingested``, ``hashes``, ``overflowed`` (files with
+        a channel past twice the peak capacity), ``merges``,
+        ``peak_pending_channels`` (decoded channels not yet collected),
+        ``fallbacks`` (channels retried alone, when any) and ``seconds``.
+        """
+        known = self.catalog.fingerprinted_file_hashes()
+        todo: List[Tuple[str, str]] = []
+        for f in files:
+            sha = unique_file_hash(f)
+            if sha not in known:
+                todo.append((f, sha))
+        return self._ingest_stream(
+            todo, n_inputs=len(files), skipped=len(files) - len(todo),
+            limit=limit, batch_size=batch_size,
+            song_peak_capacity=song_peak_capacity,
+            merge_chunk_hashes=merge_chunk_hashes, verbose=verbose)
+
     def ingest_arrays(self, named_samples: Sequence[Tuple[str, np.ndarray]],
                       batch_size: int = 8,
                       song_peak_capacity: Optional[int] = None,
@@ -128,20 +262,105 @@ class SIA:
             batch_size=batch_size, song_peak_capacity=song_peak_capacity,
             verbose=verbose)
 
+    def ingest_channels(self, name: str, channels: Sequence[np.ndarray],
+                        batch_size: int = 8,
+                        song_peak_capacity: Optional[int] = None) -> Dict:
+        """Ingest one song from decoded channels (per-channel fingerprints
+        set-unioned, reference ``recognizer.py:377-382``); the dedup key
+        is the SHA-1 of the channel bytes. ``name`` is treated like a
+        file's basename (its extension is stripped)."""
+        chans = [np.asarray(c) for c in channels if len(c)]
+        if not chans:
+            raise ValueError("no non-empty channels to ingest")
+        h = hashlib.sha1()
+        for c in chans:
+            h.update(c.tobytes())
+        sha = h.hexdigest().upper()
+        if sha in self.catalog.fingerprinted_file_hashes():
+            return {"files": 1, "skipped": 1, "ingested": 0, "hashes": 0,
+                    "overflowed": [], "merges": 0}
+        return self._ingest_pending(
+            [(name, sha, chans)], n_inputs=1, skipped=0,
+            batch_size=batch_size, song_peak_capacity=song_peak_capacity,
+            verbose=False)
+
+    def _peak_cap(self, song_peak_capacity: Optional[int]) -> int:
+        return song_peak_capacity or max(self.config.peak_capacity, 16384)
+
+    def _upload(self, batch: np.ndarray) -> torch.Tensor:
+        """A host batch on the device as float32 (int16 uploads as int16
+        and is cast there). On the card the copy is staged through pinned
+        memory and does not block the host."""
+        t = torch.from_numpy(batch)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True).to(torch.float32)
+
+    def _launch_batch(self, batch: np.ndarray, n_valid: np.ndarray,
+                      peak_cap: int):
+        """Upload and fingerprint a padded batch and start its read-back;
+        ``_collect_batch`` takes the result."""
+        x = self._upload(batch)
+        nv = torch.from_numpy(n_valid).to(self.device)
+        fp = self._fingerprint(x, nv, peak_cap)
+        return _start_download(fp), x, nv
+
+    def _collect_batch(self, launched, peak_cap: int, stats: Dict,
+                       names: Sequence[str]) -> List[Fingerprints]:
+        """Each row's host Fingerprints. A row whose peaks overflowed is
+        fingerprinted again alone at twice the capacity; past that, its
+        name goes to ``stats["overflowed"]``."""
+        pending, x, nv = launched
+        fp = _finish_download(pending)
+        out = []
+        for row, name in enumerate(names):
+            one = Fingerprints(*(a[row] for a in fp))
+            if int(one.n_peaks) > peak_cap:
+                fp2 = self._fingerprint(x[row:row + 1], nv[row:row + 1],
+                                        2 * peak_cap)
+                one = Fingerprints(*(a[0].cpu() for a in fp2))
+                stats["fallbacks"] = stats.get("fallbacks", 0) + 1
+                if int(one.n_peaks) > 2 * peak_cap:
+                    stats["overflowed"].append(name)
+            out.append(one)
+        return out
+
+    def _merge_songs(self, entries) -> None:
+        """Merge finished songs' (sid, hi, lo, ex, t1) runs into the index,
+        then mark them fingerprinted (durable only after the merge: the
+        reference's set_song_fingerprinted rule)."""
+        n_songs = max(max(e[0] for e in entries) + 1, self.index.n_songs)
+        self.index = merge_into(self.index,
+                                build_index(entries, n_songs=n_songs))
+        for sid, *_rest in entries:
+            self.catalog.set_song_fingerprinted(sid)
+
+    def _record_song(self, f: str, sha: str, fps: List[Fingerprints],
+                     stats: Dict, verbose: bool):
+        """Channel union and catalog row of one song; its index entry."""
+        hi, lo, ex, t1 = union_pairs(fps)
+        song_name = os.path.splitext(os.path.basename(f))[0]
+        sid = self.catalog.insert_song(song_name, sha, int(hi.size))
+        stats["ingested"] += 1
+        stats["hashes"] += int(hi.size)
+        if verbose:
+            print(f"ingested {song_name}: {hi.size} hashes (song_id={sid})")
+        return sid, hi, lo, ex, t1
+
     def _ingest_pending(self, pending: List[Tuple[str, str, List[np.ndarray]]],
                         n_inputs: int, skipped: int, batch_size: int,
                         song_peak_capacity: Optional[int],
                         verbose: bool) -> Dict:
         t_start = time.time()
-        peak_cap = song_peak_capacity or max(self.config.peak_capacity, 16384)
+        peak_cap = self._peak_cap(song_peak_capacity)
         stats = {"files": n_inputs, "skipped": skipped, "ingested": 0,
                  "hashes": 0, "overflowed": []}
 
-        chan_meta: List[Tuple[int, int]] = []  # (song_idx, n_samples)
+        chan_song: List[int] = []
         chan_data: List[np.ndarray] = []
         for si, (_f, _sha, channels) in enumerate(pending):
             for ch in channels:
-                chan_meta.append((si, len(ch)))
+                chan_song.append(si)
                 chan_data.append(ch)
         by_bucket: Dict[int, List[int]] = {}
         for ci, ch in enumerate(chan_data):
@@ -151,52 +370,133 @@ class SIA:
         for blen, chan_ids in sorted(by_bucket.items()):
             for base in range(0, len(chan_ids), batch_size):
                 ids = chan_ids[base:base + batch_size]
-                # int16 sources upload as int16 (half the bytes) and are
-                # cast to f32 on the device, exactly
-                all_int = all(chan_data[ci].dtype == np.int16 for ci in ids)
-                batch = np.zeros((len(ids), blen),
-                                 np.int16 if all_int else np.float32)
-                n_valid = np.zeros(len(ids), np.int32)
-                for row, ci in enumerate(ids):
-                    batch[row, : len(chan_data[ci])] = chan_data[ci]
-                    n_valid[row] = len(chan_data[ci])
-                x = torch.from_numpy(batch).to(self.device).to(torch.float32)
-                nv = torch.from_numpy(n_valid).to(self.device)
-                fp = self._fingerprint(x, nv, peak_cap)
-                fp = Fingerprints(*(a.cpu() for a in fp))
-                for row, ci in enumerate(ids):
-                    si = chan_meta[ci][0]
-                    one = Fingerprints(*(a[row] for a in fp))
-                    if int(one.n_peaks) > peak_cap:
-                        # peak-capacity overflow: the same path
-                        # again at twice the capacity, this channel alone
-                        fp2 = self._fingerprint(
-                            x[row:row + 1], nv[row:row + 1], 2 * peak_cap)
-                        one = Fingerprints(*(a[0].cpu() for a in fp2))
-                        stats["fallbacks"] = stats.get("fallbacks", 0) + 1
-                        if int(one.n_peaks) > 2 * peak_cap:
-                            stats["overflowed"].append(pending[si][0])
-                    song_fps.setdefault(si, []).append(one)
+                batch, n_valid = _pad_rows([chan_data[ci] for ci in ids], blen)
+                fps = self._collect_batch(
+                    self._launch_batch(batch, n_valid, peak_cap), peak_cap,
+                    stats, [pending[chan_song[ci]][0] for ci in ids])
+                for ci, one in zip(ids, fps):
+                    song_fps.setdefault(chan_song[ci], []).append(one)
 
-        new_entries = []
-        for si, (f, sha, _channels) in enumerate(pending):
-            hi, lo, ex, t1 = union_pairs(song_fps.get(si, []))
-            song_name = os.path.splitext(os.path.basename(f))[0]
-            sid = self.catalog.insert_song(song_name, sha, int(hi.size))
-            new_entries.append((sid, hi, lo, ex, t1))
-            stats["ingested"] += 1
-            stats["hashes"] += int(hi.size)
-            if verbose:
-                print(f"ingested {song_name}: {hi.size} hashes (song_id={sid})")
-
+        new_entries = [self._record_song(f, sha, song_fps.get(si, []), stats,
+                                         verbose)
+                       for si, (f, sha, _channels) in enumerate(pending)]
         if new_entries:
-            n_songs = max(e[0] for e in new_entries) + 1
-            addition = build_index(new_entries,
-                                   n_songs=max(n_songs, self.index.n_songs))
-            self.index = merge_into(self.index, addition)
-            for sid, *_rest in new_entries:
-                self.catalog.set_song_fingerprinted(sid)
+            self._merge_songs(new_entries)
+        stats["seconds"] = time.time() - t_start
+        return stats
 
+    def _ingest_stream(self, todo: List[Tuple[str, str]], *, n_inputs: int,
+                       skipped: int, limit: Optional[float], batch_size: int,
+                       song_peak_capacity: Optional[int],
+                       merge_chunk_hashes: int, verbose: bool) -> Dict:
+        """The JAX package's ``_ingest_stream``, with its order: songs get
+        ids as their last channel comes back (buckets by length, rows in
+        file order within a bucket), then the files decoded eagerly."""
+        t_start = time.time()
+        peak_cap = self._peak_cap(song_peak_capacity)
+        fs_cfg = self.config.sample_rate
+        stats = {"files": n_inputs, "skipped": skipped, "ingested": 0,
+                 "hashes": 0, "overflowed": [], "merges": 0,
+                 "peak_pending_channels": 0}
+
+        # plan by header probes only: (file, channel, frames) rows per
+        # bucket; files the probe cannot size (non-WAV, or at another rate,
+        # whose resampled length the plan cannot bucket) decode eagerly
+        rows_by_bucket: Dict[int, List[Tuple[int, int, int]]] = {}
+        song_expect: List[int] = []    # channels outstanding per song
+        unknown: List[int] = []
+        for si, (f, _sha) in enumerate(todo):
+            info = probe(f)
+            if info is not None and info[1] != fs_cfg:
+                if not self.resample:
+                    raise ValueError(
+                        f"{f}: sample rate {info[1]} != config {fs_cfg}")
+                info = None
+            if info is None:
+                unknown.append(si)
+                song_expect.append(-1)
+                continue
+            n_ch, fs, frames = info
+            if limit is not None:
+                frames = min(frames, int(limit * fs))
+            song_expect.append(n_ch)
+            rows_by_bucket.setdefault(_bucket_len(frames), []).extend(
+                (si, c, frames) for c in range(n_ch))
+
+        song_fps: Dict[int, List[Fingerprints]] = {}
+        chunk: List = []               # finished songs awaiting a merge
+        counts = {"hashes": 0, "channels": 0}   # pending in chunk / flight
+
+        def decode_rows(rows, blen):
+            """One file's channels at a time, each cut to its planned
+            frames."""
+            decoded: Dict[str, List[np.ndarray]] = {}
+            chans = []
+            for si, c, frames in rows:
+                f = todo[si][0]
+                if f not in decoded:
+                    decoded.clear()
+                    decoded[f] = read(f, limit)[0]
+                chans.append(decoded[f][c][:frames])
+            return _pad_rows(chans, blen)
+
+        def launch(batch, n_valid, rows):
+            counts["channels"] += len(rows)
+            stats["peak_pending_channels"] = max(
+                stats["peak_pending_channels"], counts["channels"])
+            return self._launch_batch(batch, n_valid, peak_cap), rows
+
+        def maybe_merge(force=False):
+            if chunk and (force or counts["hashes"] >= merge_chunk_hashes):
+                self._merge_songs(chunk)
+                chunk.clear()
+                counts["hashes"] = 0
+                stats["merges"] += 1
+
+        def collect(inflight):
+            launched, rows = inflight
+            fps = self._collect_batch(launched, peak_cap, stats,
+                                      [todo[si][0] for si, _c, _n in rows])
+            for (si, _c, _n), one in zip(rows, fps):
+                song_fps.setdefault(si, []).append(one)
+                counts["channels"] -= 1
+                song_expect[si] -= 1
+                if song_expect[si] == 0:
+                    entry = self._record_song(*todo[si], song_fps.pop(si),
+                                              stats, verbose)
+                    chunk.append(entry)
+                    counts["hashes"] += int(entry[1].size)
+            maybe_merge()
+
+        # stream: batch k is collected only after batch k+1 was decoded
+        # and launched, so decode overlaps the device's work
+        inflight = None
+        for blen in sorted(rows_by_bucket):
+            rows = rows_by_bucket[blen]
+            for base in range(0, len(rows), batch_size):
+                part = rows[base:base + batch_size]
+                launched = launch(*decode_rows(part, blen), part)
+                if inflight is not None:
+                    collect(inflight)
+                inflight = launched
+        if inflight is not None:
+            collect(inflight)
+
+        for si in unknown:
+            f, _sha = todo[si]
+            channels, fs, _ = read(f, limit)
+            if fs != fs_cfg:
+                if not self.resample:
+                    raise ValueError(
+                        f"{f}: sample rate {fs} != config {fs_cfg}")
+                channels = resample_channels(channels, fs, fs_cfg)
+            song_expect[si] = len(channels)
+            batch, n_valid = _pad_rows(
+                channels, _bucket_len(max(len(ch) for ch in channels)))
+            collect(launch(batch, n_valid,
+                           [(si, c, int(n)) for c, n in enumerate(n_valid)]))
+
+        maybe_merge(force=True)
         stats["seconds"] = time.time() - t_start
         return stats
 
@@ -236,6 +536,11 @@ class SIA:
             (n_samples - self.config.window_size) // self.config.hop + 1, 1)
         q_frames = q_frames_for_max_offset(n_frames - 1)
         return -q_frames, self._max_off + 2 * q_frames
+
+    def _use_sparse(self, n_samples: int) -> bool:
+        """Past ``sparse_vote_threshold`` vote bins: the sparse ranks."""
+        _, delta_range = self._delta_params_for(n_samples)
+        return self._n_songs() * delta_range > self.config.sparse_vote_threshold
 
     def _n_songs(self) -> int:
         return max(self.index.n_songs, 1)
@@ -303,7 +608,8 @@ class SIA:
             "total_time": fingerprint_time + query_time + align_time,
         }
 
-    def _match_prepared(self, q, n_samples: int, topn: Optional[int] = None):
+    def _match_prepared(self, q, n_samples: int, topn: Optional[int] = None,
+                        min_capacity: Optional[int] = None):
         """Match prepared query pairs with capacity tiers; returns (host
         RawMatch, capacity actually used).
 
@@ -315,16 +621,19 @@ class SIA:
         first dispatch: decided-first runs at the decide tier and keeps its
         search bounds, bounds-first probes the exact total and dispatches
         once at the tier it fits. Either way a re-dispatch reuses the
-        bounds instead of searching again.
+        bounds instead of searching again. ``min_capacity``: a caller that
+        knows the query's exact total (a batch's clamped clip) starts at
+        the tier that fits it, with no escalation policy.
         """
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(n_samples)
         n_songs = self._n_songs()
-        q_dev = [torch.from_numpy(a.astype(np.int64)).to(self.device)
-                 for a in (q.hi, q.lo, q.ex, q.t)]
-        q_dev += [torch.from_numpy(a).to(self.device) for a in (q.valid, q.first)]
+        q_dev = self._query_to_device({name: getattr(q, name)
+                                       for name in QUERY_COLUMNS})
         caps = self._match_tiers()
-        use_sparse = n_songs * delta_range > self.config.sparse_vote_threshold
+        if min_capacity is not None:
+            caps = [c for c in caps if c >= min_capacity] or caps[-1:]
+        use_sparse = self._use_sparse(n_samples)
         eblk = self._expand_block_for(index)
         bounds = None   # an earlier search's (lb, ub), on the device
 
@@ -346,7 +655,7 @@ class SIA:
             return raw_to_host(out)[0]
 
         total = None
-        big = use_sparse and self._big_index(index)
+        big = use_sparse and min_capacity is None and self._big_index(index)
         if big and self._decide_first():
             cap = self._decide_cap(caps)
             raw, bounds = run(cap, with_bounds=True)
@@ -379,6 +688,14 @@ class SIA:
                 # that, the row-by-row expansion is the exact fallback
                 raw = run(cap, blk=0)
         return raw, cap
+
+    def _query_to_device(self, cols: Dict[str, np.ndarray]):
+        """Query columns (one query or a (B, Q) stack) on the device, in
+        ``QUERY_COLUMNS`` order: keys and offsets as int64, masks bool."""
+        return [torch.from_numpy(np.asarray(cols[name], np.int64
+                                            if name in ("hi", "lo", "ex", "t")
+                                            else bool)).to(self.device)
+                for name in QUERY_COLUMNS]
 
     def _big_index(self, index: DeviceIndex) -> bool:
         """The index is at least ``bounds_probe_min_rows`` rows (0: never),
@@ -494,8 +811,7 @@ class SIA:
         # yields ~1-2K unique pairs
         q_cap = 2048 if len(samples) <= 6 * self.config.sample_rate else 4096
         one_cap = self.config.match_capacity_fast
-        if (n_songs * delta_range > self.config.sparse_vote_threshold
-                and self._big_index(index)):
+        if self._use_sparse(len(samples)) and self._big_index(index):
             if not self._decide_first():
                 return self._recognize_clip_probed(
                     samples, index, n_songs=n_songs, delta_min=delta_min,
@@ -590,6 +906,227 @@ class SIA:
             "align_time": align_time,
             "total_time": device_time + align_time,
         }
+
+    def recognize_file(self, path: str, limit: Optional[float] = None,
+                       topn: Optional[int] = None) -> Dict:
+        """Decode an audio file (resampled to ``config.sample_rate`` when
+        ``resample``, else a ``ValueError`` at another rate) and recognize
+        its channels with ``recognize_samples``."""
+        channels, fs, _sha = read(path, limit)
+        if fs != self.config.sample_rate:
+            if not self.resample:
+                raise ValueError(
+                    f"{path}: sample rate {fs} != {self.config.sample_rate}")
+            channels = resample_channels(channels, fs, self.config.sample_rate)
+        return self.recognize_samples(channels, topn=topn)
+
+    def recognize_batch(self, clips: Sequence[np.ndarray],
+                        topn: Optional[int] = None, pad_to_pow2: bool = False,
+                        match_capacity: Optional[int] = None) -> List[Dict]:
+        """Recognize many mono clips: one fingerprint batch and one match
+        dispatch for all of them; per-clip results equal
+        ``recognize_samples`` on each clip alone (a clip decided under a
+        clamp reports lower-bound matched counts at the batch's tier), with
+        the batch's ``batch_*`` times beside the amortized per-clip ones.
+
+        ``pad_to_pow2`` rounds the batch up to a power of two with empty
+        rows, which produce no output. ``match_capacity`` overrides the
+        base dispatch tier; results are the same, since per-clip
+        escalation still runs. ``prepare_batch`` then
+        ``match_prepared_batch``.
+        """
+        pb = self.prepare_batch(clips, topn=topn, pad_to_pow2=pad_to_pow2,
+                                match_capacity=match_capacity)
+        if pb is None:
+            return []
+        return self.match_prepared_batch(pb)
+
+    def prepare_batch(self, clips: Sequence[np.ndarray],
+                      topn: Optional[int] = None, pad_to_pow2: bool = False,
+                      match_capacity: Optional[int] = None
+                      ) -> Optional[_PreparedBatch]:
+        """Stage 1 of ``recognize_batch``: fingerprint the clips as one
+        padded batch (one read-back) and stack their host queries. A clip
+        whose peaks overflowed gets an empty query here and re-runs alone
+        through ``recognize_samples`` in stage 2. On a big index under
+        bounds-first, the batched probe runs here too. None for no clips.
+        """
+        t0 = time.time()
+        n_real = len(clips)
+        if n_real == 0:
+            return None
+        n_clips = n_real
+        if pad_to_pow2:
+            n_clips = 1 << (n_real - 1).bit_length()
+        clips = [np.asarray(c) for c in clips]
+        batch, n_valid = _pad_rows(
+            clips + [np.zeros(0, np.float32)] * (n_clips - n_real),
+            max(_bucket_len(len(c)) for c in clips))
+        fp = _finish_download(self._launch_batch(
+            batch, n_valid, self.config.peak_capacity)[0])
+        peak_over = {i for i in range(n_real)
+                     if int(fp.n_peaks[i]) > self.config.peak_capacity}
+        queries = [prepare_query([]) if i in peak_over
+                   else prepare_query([Fingerprints(*(a[i] for a in fp))])
+                   for i in range(n_clips)]
+        q_cap = max(len(q.hi) for q in queries)
+        stack = {name: np.stack([np.pad(getattr(q, name),
+                                        (0, q_cap - len(q.hi)))
+                                 for q in queries])
+                 for name in QUERY_COLUMNS}
+
+        q_dev = probe_totals = probe_bounds = None
+        if not self._decide_first() and self.config.bounds_probe_min_rows:
+            index = self._ensure_device_index()
+            if (self._use_sparse(max(map(len, clips)))
+                    and self._big_index(index)):
+                q_dev = self._query_to_device(stack)
+                totals, lb, ub = query_totals_batched(
+                    index, q_dev[0], q_dev[1], q_dev[2], q_dev[4])
+                probe_totals = totals.cpu().numpy()
+                probe_bounds = (lb, ub)
+        return _PreparedBatch(
+            clips=clips, queries=queries, stack=stack, peak_over=peak_over,
+            topn=topn, match_capacity=match_capacity,
+            fingerprint_time=time.time() - t0, q_dev=q_dev,
+            probe_totals=probe_totals, probe_bounds=probe_bounds)
+
+    def _batch_match(self, q_dev, n_samples: int, cap: int,
+                     topn: Optional[int] = None, bounds=None) -> RawMatch:
+        """One batched match dispatch of a (B, Q) query stack on the device
+        at tier ``cap``: the dense histogram, or past the threshold the sort
+        rank with the blocked expansion where the solo path takes it.
+        ``n_samples`` (the batch's longest clip) sizes every clip's delta
+        window, as in the JAX package."""
+        index = self._ensure_device_index()
+        delta_min, delta_range = self._delta_params_for(n_samples)
+        sparse = self._use_sparse(n_samples)
+        eblk = self._expand_block_for(index) if sparse else 0
+        return match_queries_batched(
+            index, *q_dev, rank="sort" if sparse else "dense",
+            n_songs=self._n_songs(), delta_min=delta_min,
+            delta_range=delta_range, match_capacity=cap,
+            topn=topn or self.config.topn,
+            expand_block=self._eblk_for_cap(eblk, cap),
+            expand_runs=self.config.expand_block_runs, bounds=bounds)
+
+    def match_prepared_batch(self, pb: _PreparedBatch) -> List[Dict]:
+        """Stage 2 of ``recognize_batch``: one batched match dispatch over
+        the prepared stack, per-clip escalation, host alignment.
+
+        The base tier is ``config.match_capacity``, as in the JAX package
+        (``match_capacity`` overrides it). The solo ladder starts lower, at
+        the fast tier, so a clip decided under a clamp at both reports
+        lower-bound matched counts taken at different clamps, each at most
+        the exact count. On a big index decided-first takes the decide
+        tier and bounds-first the tier the probe's largest total fits,
+        under the JAX package's 4 GB guard. A clip clamped there is
+        accepted when provably decided;
+        when more than half the batch is not, the whole batch dispatches
+        again at the tier the largest total fits (guard permitting), and
+        the clips still undecided re-run alone from the tier their exact
+        total fits (``_match_prepared(min_capacity=...)``). The batch
+        ranks with the dense histogram or, past
+        ``sparse_vote_threshold``, the sort rank, which gives the
+        ``RawMatch`` of every sparse rank.
+        """
+        clips, queries, peak_over = pb.clips, pb.queries, pb.peak_over
+        n_real = len(clips)
+        topn = pb.topn
+        n_samples = max(map(len, clips))
+        t0 = time.time()
+        index = self._ensure_device_index()
+        q_dev = pb.q_dev or self._query_to_device(pb.stack)
+        probe_bounds = None
+
+        def dispatch(cap):
+            raw = batched_raw_to_host(self._batch_match(
+                q_dev, n_samples, cap, topn=topn, bounds=probe_bounds))
+            return raw, raw.total_rows[:n_real]
+
+        tiers = self._match_tiers()
+        base_cap = pb.match_capacity or self.config.match_capacity
+        decide_first = self._decide_first()
+        big = self._use_sparse(n_samples) and self._big_index(index)
+        if big and decide_first:
+            if pb.match_capacity is None:
+                base_cap = self._decide_cap(tiers)
+        elif big:
+            if pb.probe_bounds is not None:
+                probe_totals, probe_bounds = pb.probe_totals, pb.probe_bounds
+            else:
+                totals, lb, ub = query_totals_batched(
+                    index, q_dev[0], q_dev[1], q_dev[2], q_dev[4])
+                probe_totals, probe_bounds = totals.cpu().numpy(), (lb, ub)
+            if pb.match_capacity is None:
+                need = int(probe_totals[:n_real].max())
+                max_stream = BATCH_GUARD_BYTES // (24 * n_real)
+                allowed = [c for c in tiers if c <= max_stream] or tiers[:1]
+                base_cap = min(next((c for c in tiers if c >= need),
+                                    tiers[-1]), allowed[-1])
+
+        raw, clamp = dispatch(base_cap)
+        batch_cap = base_cap
+        decided_ids: set = set()
+        retried: Dict[int, Tuple] = {}
+
+        def undecided(clamped):
+            """The clamped clips whose margin does not decide them."""
+            if not self.config.decision_escalation:
+                return clamped
+            margin_ok = (raw.top_votes[:n_real, 0] - raw.runner_votes[:n_real]
+                         > raw.n_dropped[:n_real])
+            decided_ids.update(int(i) for i in clamped if margin_ok[i])
+            return clamped[~margin_ok[clamped]]
+
+        if tiers[-1] > batch_cap:
+            over = undecided(np.nonzero(
+                (clamp > batch_cap) | (raw.n_dropped[:n_real] > 0))[0])
+            if big and decide_first and pb.match_capacity is None:
+                self._decide_record(n_real, len(over))
+            if len(over) > max(n_real // 2, 1):
+                cand_cap = next((c for c in tiers if c >= int(clamp.max())),
+                                tiers[-1])
+                m_bits = min(24, max(18, (cand_cap * 16 - 1).bit_length()))
+                if n_real * ((1 << m_bits) * 4 + 24 * cand_cap) \
+                        <= BATCH_GUARD_BYTES:
+                    batch_cap = cand_cap
+                    raw, clamp = dispatch(batch_cap)
+                    decided_ids.clear()   # judged against the old dispatch
+                    over = undecided(np.nonzero(
+                        (clamp > batch_cap) | (raw.n_dropped[:n_real] > 0))[0])
+            for i in over:
+                retried[int(i)] = self._match_prepared(
+                    queries[i], len(clips[i]), topn=topn,
+                    min_capacity=int(clamp[i]))
+        query_time = time.time() - t0
+
+        out = []
+        for i in range(n_real):
+            if i in peak_over:
+                out.append(self.recognize_samples([clips[i]], topn=topn))
+                continue
+            t0 = time.time()
+            if i in retried:
+                one, cap_i = retried[i]
+            else:
+                one = RawMatch(*(a[i] for a in raw))
+                # a clip that fit, or is provably decided, reads as
+                # unaffected by the capacity
+                cap_i = (max(int(one.total_rows), batch_cap)
+                         if int(one.total_rows) <= batch_cap
+                         or i in decided_ids else batch_cap)
+            res = self._clip_result(one, queries[i].n_pairs, cap_i, 0.0)
+            align_time = time.time() - t0
+            res.update(
+                fingerprint_time=pb.fingerprint_time / n_real,
+                query_time=query_time / n_real, align_time=align_time,
+                total_time=(pb.fingerprint_time + query_time) / n_real
+                + align_time,
+                batch_fingerprint_time=pb.fingerprint_time,
+                batch_query_time=query_time, batch_size=n_real)
+            out.append(res)
+        return out
 
     # ------------------------------------------------------------------ #
     # catalog maintenance and persistence

@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -261,3 +261,18 @@ def merge_into(base: FingerprintIndex, addition: FingerprintIndex) -> Fingerprin
         n_songs=max(base.n_songs, addition.n_songs),
         max_offset=max(base.max_offset, addition.max_offset),
     )
+
+
+def merge_indices(indices: Iterable[FingerprintIndex]) -> FingerprintIndex:
+    """Merge sorted indices by one full sort of their concatenated rows
+    (``merge_into`` gives the same arrays for two runs in ~O(n))."""
+    indices = [ix for ix in indices if ix.n_hashes > 0]
+    if not indices:
+        return FingerprintIndex(*(np.zeros(0, np.uint32),) * 5, n_songs=0,
+                                max_offset=0)
+    cols = _sort_entries(*(np.concatenate([getattr(ix, name) for ix in indices])
+                           for name in ("key_hi", "key_lo", "key_ex",
+                                        "song_id", "offset")))
+    return FingerprintIndex(
+        *cols, n_songs=max(ix.n_songs for ix in indices),
+        max_offset=max(ix.max_offset for ix in indices))

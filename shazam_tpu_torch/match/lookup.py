@@ -8,22 +8,26 @@ ops that never sync the host:
 1. ``lexi_bounds`` gives each query (hash, offset) pair its row run
    [lb, ub) in the sorted index;
 2. runs are included whole, shortest first, into a fixed-capacity vote
-   list (a slot maps back to its run by a marks + prefix sum), row by row
-   or, with ``expand_block``, as aligned blocks of the payload;
+   list (a slot maps back to its run by a searchsorted over the included
+   runs' cumulative lengths), row by row or, with ``expand_block``, as
+   aligned blocks of the payload (``expand_stack``);
 3. votes are counted and ranked with the reference's tie rules (per-song
    best delta = smallest delta among the maxima, ranking ties to the
    smallest song id) by one of the element-identical ranks:
 
-   - dense: a (n_songs, delta_range) histogram (``match_query``);
+   - dense: a (n_songs, delta_range) histogram (``dense_rank``);
    - sort: sort the packed (song, delta) keys, run-length count them and
-     reduce per song with scatters (``_sparse_vote_rank``);
+     reduce per song with scatters (``sort_rank``);
    - scan: the same sort, then cumulative scans instead of scatters
      (``_scan_vote_rank``);
    - pruned: hashed per-song vote upper bounds pick candidate songs, a
      dense histogram over those only, and a certificate that selects the
      sort rank when it cannot prove the result (``match_query_pruned``).
 
-The JAX package switches from dense to the others past
+The expansion and the dense and sort ranks take a (Bq, ...) stack of
+queries, with the query index in the data, so that ``match/batched.py``
+matches a batch in one dispatch; one query is a stack of one. The JAX
+package switches from dense to the others past
 ``config.sparse_vote_threshold`` vote bins; so does the port, and every
 caller picks one by name through ``match_by_rank``.
 """
@@ -39,6 +43,7 @@ from ..index.search import lexi_bounds
 from ..index.store import DeviceIndex
 
 _SENT = 0x7FFFFFFF     # int32 max: sorts after every packed vote key
+_CLIP_SHIFT = 31       # vote keys are < 2^31 (check_vote_key)
 _M32 = 0xFFFFFFFF
 _FIB = 0x9E3779B1      # Fibonacci multiplicative hash constant
 
@@ -76,15 +81,16 @@ class RawMatch(NamedTuple):
 
 def _scatter(size: int, idx, src, reduce: str, fill: int = 0):
     """``jnp.zeros(size).at[idx].<reduce>(src, mode="drop")``: indices
-    outside [0, size) land in one extra dump slot that is cut off."""
+    outside [0, size) land in one extra dump slot that is cut off. ``idx``
+    and ``src`` of any matching shape scatter element by element."""
     dev = src.device
     out = torch.full((size + 1,), fill, dtype=torch.int64, device=dev)
-    safe = torch.where((idx >= 0) & (idx < size), idx, size)
+    safe = torch.where((idx >= 0) & (idx < size), idx, size).reshape(-1)
+    src = src.to(torch.int64).reshape(-1)
     if reduce == "sum":
-        out.index_add_(0, safe, src.to(torch.int64))
+        out.index_add_(0, safe, src)
     else:
-        out.scatter_reduce_(0, safe, src.to(torch.int64), reduce=reduce,
-                            include_self=True)
+        out.scatter_reduce_(0, safe, src, reduce=reduce, include_self=True)
     return out[:size]
 
 
@@ -112,59 +118,40 @@ def _bounds(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid, bounds):
     return lexi_bounds(index, q_hi, q_lo, q_ex, q_valid)
 
 
-def _expand(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, *,
-            match_capacity: int, expand_block: int = 0,
-            expand_runs: int = 0, bounds=None):
-    """Search + fixed-capacity row expansion.
+def _slots_to_runs(cum_inc, n_slots: int):
+    """Per query, stream slot v -> (run p, v's place in run p, v) where run
+    p holds slot v: p = #{i: cum_inc[i] <= v}, one batched searchsorted."""
+    bq, n_runs = cum_inc.shape
+    v = torch.arange(n_slots, device=cum_inc.device).expand(bq, n_slots)
+    p = torch.searchsorted(cum_inc, v.contiguous(), right=True)
+    p = torch.clamp(p, max=n_runs - 1)
+    prev = torch.where(p > 0, cum_inc.gather(1, torch.clamp(p - 1, min=0)), 0)
+    return p, v - prev, v
 
-    Returns (sid, delta, p, valid, total, n_dropped) per vote slot: song
-    id, offset delta, owning query lane, validity, the exact total match
-    count (even when the budget clamps) and the number of excluded runs.
-    Whole runs are included shortest-first (stable: equal lengths keep
-    lane order) until the budget is spent. ``bounds`` reuses an earlier
-    search's per-lane (lb, ub); ``expand_block`` reads the rows as
-    aligned blocks (``_blocked_expand``).
-    """
-    lb, ub = _bounds(index, q_hi, q_lo, q_ex, q_valid, bounds)
-    lens = torch.where(q_valid, ub - lb, 0)
-    if expand_block:
-        return _blocked_expand(index, lb, ub, lens, q_t,
-                               block_size=expand_block,
-                               match_capacity=match_capacity,
-                               max_runs=expand_runs)
-    total = lens.sum()
-    n_lanes = lens.shape[0]
 
-    order = torch.argsort(lens, stable=True)
-    lens_s = lens[order]
-    lb_s = lb[order]
-    included = torch.cumsum(lens_s, 0) <= match_capacity
-    n_dropped = ((lens_s > 0) & ~included).sum()
-    cum_inc = torch.cumsum(torch.where(included, lens_s, 0), 0)
-    total_inc = cum_inc[-1]
-
-    # slot v -> run #{i: cum_inc[i] <= v}: ones at the run ends + a prefix
-    # sum; ends at >= capacity fall off (masked, not scattered)
-    dev = lens.device
-    in_range = cum_inc < match_capacity
-    marks = torch.zeros(match_capacity, dtype=torch.int64, device=dev)
-    marks.index_add_(0, torch.where(in_range, cum_inc, 0), in_range.long())
-    p = torch.clamp(torch.cumsum(marks, 0), max=n_lanes - 1)
-    prev = torch.where(p > 0, cum_inc[torch.clamp(p - 1, min=0)], 0)
-    v = torch.arange(match_capacity, device=dev)
-    row = lb_s[p] + (v - prev)
-    valid = v < total_inc
-    p = order[p]
-
+def _expand_rows(index: DeviceIndex, lb, ub, lens, q_t, *,
+                 match_capacity: int):
+    """Row-by-row expansion of a (Bq, Q) stack: per query, whole runs
+    shortest-first (stable: equal lengths keep lane order) until the
+    budget is spent."""
+    order = torch.argsort(lens, dim=1, stable=True)
+    lens_s = lens.gather(1, order)
+    included = torch.cumsum(lens_s, 1) <= match_capacity
+    n_dropped = ((lens_s > 0) & ~included).sum(1)
+    cum_inc = torch.cumsum(torch.where(included, lens_s, 0), 1)
+    p, within, v = _slots_to_runs(cum_inc, match_capacity)
+    row = lb.gather(1, order).gather(1, p) + within
+    valid = v < cum_inc[:, -1:]
+    p = order.gather(1, p)
     packed = index.payload[torch.where(valid, row, 0)]
     sid = packed // index.stride
-    delta = packed % index.stride - q_t.to(torch.int64)[p]
-    return sid, delta, p, valid, total, n_dropped
+    delta = packed % index.stride - q_t.gather(1, p)
+    return sid, delta, p, valid, n_dropped
 
 
-def _blocked_expand(index: DeviceIndex, lb, ub, lens, q_t, *,
-                    block_size: int, match_capacity: int, max_runs: int = 0):
-    """``_expand``'s contract, reading whole aligned ``block_size``-row
+def _expand_blocks(index: DeviceIndex, lb, ub, lens, q_t, *,
+                   block_size: int, match_capacity: int, max_runs: int):
+    """The expansion's contract, reading whole aligned ``block_size``-row
     blocks of the payload (its (N/B, B) view) instead of single rows.
 
     Runs are included whole, shortest-first in block units, while both
@@ -175,7 +162,7 @@ def _blocked_expand(index: DeviceIndex, lb, ub, lens, q_t, *,
     too. Every excluded run counts in ``n_dropped``, so "total <=
     capacity and nonempty runs <= R => nothing dropped" holds, and
     included live rows never exceed ``match_capacity`` (the ranks sort
-    and keep that prefix). Returns arrays of ``cap_blocks * B`` slots;
+    and keep that prefix). Returns ``cap_blocks * B`` slots per query;
     ``p`` is constant within each block.
     """
     B = block_size
@@ -184,48 +171,73 @@ def _blocked_expand(index: DeviceIndex, lb, ub, lens, q_t, *,
         raise ValueError(
             f"payload rows {payload.shape[0]} not a multiple of the block "
             f"size {B}")
-    total = lens.sum()
+    bq, n_runs = lens.shape
     b0 = lb // B
-    b1 = (ub + B - 1) // B
-    nblk = torch.where(lens > 0, b1 - b0, 0)
-
-    order = torch.argsort(nblk, stable=True)   # shortest-first, in blocks
-    nblk_s = nblk[order]
-    b0_s = b0[order]
-    n_runs = lens.shape[0]
+    nblk = torch.where(lens > 0, (ub + B - 1) // B - b0, 0)
+    order = torch.argsort(nblk, dim=1, stable=True)
+    nblk_s = nblk.gather(1, order)
     runs_budget = min(n_runs, max_runs) if max_runs else n_runs
     cap_blocks = match_capacity // B + 2 * runs_budget
     nonempty = nblk_s > 0
-    included = ((torch.cumsum(nblk_s, 0) <= cap_blocks)
-                & (torch.cumsum(lens[order], 0) <= match_capacity))
+    included = ((torch.cumsum(nblk_s, 1) <= cap_blocks)
+                & (torch.cumsum(lens.gather(1, order), 1) <= match_capacity))
     if runs_budget < n_runs:
-        included &= torch.cumsum(nonempty.long(), 0) <= runs_budget
-    n_dropped = (nonempty & ~included).sum()
-    cum_inc = torch.cumsum(torch.where(included, nblk_s, 0), 0)
-    total_blocks = cum_inc[-1]
-
-    dev = lens.device
-    in_range = cum_inc < cap_blocks
-    marks = torch.zeros(cap_blocks, dtype=torch.int64, device=dev)
-    marks.index_add_(0, torch.where(in_range, cum_inc, 0), in_range.long())
-    pb = torch.clamp(torch.cumsum(marks, 0), max=n_runs - 1)
-    prev = torch.where(pb > 0, cum_inc[torch.clamp(pb - 1, min=0)], 0)
-    v = torch.arange(cap_blocks, device=dev)
-    blk = b0_s[pb] + (v - prev)
-    blk_valid = v < total_blocks
-    run = order[pb]                            # owning run (= lane)
+        included &= torch.cumsum(nonempty.long(), 1) <= runs_budget
+    n_dropped = (nonempty & ~included).sum(1)
+    cum_inc = torch.cumsum(torch.where(included, nblk_s, 0), 1)
+    pb, within, v = _slots_to_runs(cum_inc, cap_blocks)
+    blk = b0.gather(1, order).gather(1, pb) + within
+    blk_valid = v < cum_inc[:, -1:]
+    run = order.gather(1, pb)                  # owning run (= lane)
 
     safe_blk = torch.where(blk_valid, blk, 0)
-    rows = payload.view(-1, B)[safe_blk]
-    g = safe_blk[:, None] * B + torch.arange(B, device=dev)[None, :]
-    valid = (blk_valid[:, None] & (g >= lb[run][:, None])
-             & (g < ub[run][:, None]))
+    rows = payload.view(-1, B)[safe_blk]       # (Bq, cap_blocks, B)
+    g = safe_blk[..., None] * B + torch.arange(B, device=lens.device)
+    valid = (blk_valid[..., None] & (g >= lb.gather(1, run)[..., None])
+             & (g < ub.gather(1, run)[..., None]))
     sid = torch.where(valid, rows // index.stride, 0)
     delta = torch.where(
-        valid, rows % index.stride - q_t.to(torch.int64)[run][:, None], 0)
-    p = run[:, None].expand(cap_blocks, B)
-    return (sid.reshape(-1), delta.reshape(-1), p.reshape(-1),
-            valid.reshape(-1), total, n_dropped)
+        valid, rows % index.stride - q_t.gather(1, run)[..., None], 0)
+    p = run[..., None].expand(bq, cap_blocks, B)
+    return (sid.reshape(bq, -1), delta.reshape(bq, -1), p.reshape(bq, -1),
+            valid.reshape(bq, -1), n_dropped)
+
+
+def expand_stack(index: DeviceIndex, lb, ub, q_t, q_valid, *,
+                 match_capacity: int, expand_block: int = 0,
+                 expand_runs: int = 0):
+    """Fixed-capacity expansion of a (Bq, Q) stack of searched queries.
+
+    Returns (sid, delta, p, valid, total, n_dropped): per vote slot (Bq,
+    slots) the song id, offset delta, owning query lane and validity; per
+    query (Bq,) the exact total match count (even when the budget clamps)
+    and the number of excluded runs. ``expand_block`` reads the rows as
+    aligned blocks (``_expand_blocks``).
+    """
+    lens = torch.where(q_valid, ub - lb, 0)
+    q_t = q_t.to(torch.int64)
+    if expand_block:
+        out = _expand_blocks(index, lb, ub, lens, q_t, block_size=expand_block,
+                             match_capacity=match_capacity,
+                             max_runs=expand_runs)
+    else:
+        out = _expand_rows(index, lb, ub, lens, q_t,
+                           match_capacity=match_capacity)
+    sid, delta, p, valid, n_dropped = out
+    return sid, delta, p, valid, lens.sum(1), n_dropped
+
+
+def _expand(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, *,
+            match_capacity: int, expand_block: int = 0,
+            expand_runs: int = 0, bounds=None):
+    """Search + ``expand_stack`` of one query (a stack of one): flat
+    (slots,) arrays and 0-dim total and n_dropped. ``bounds`` reuses an
+    earlier search's per-lane (lb, ub)."""
+    lb, ub = _bounds(index, q_hi, q_lo, q_ex, q_valid, bounds)
+    out = expand_stack(index, lb[None], ub[None], q_t[None], q_valid[None],
+                       match_capacity=match_capacity,
+                       expand_block=expand_block, expand_runs=expand_runs)
+    return tuple(a[0] for a in out)
 
 
 def _take_first(q_first, p, expand_block: int):
@@ -237,145 +249,174 @@ def _take_first(q_first, p, expand_block: int):
     return q_first[p]
 
 
-def match_local(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, q_first,
-                *, n_songs: int, delta_min: int, delta_range: int,
-                match_capacity: int):
-    """(hist, rows_hist, total, n_dropped): the dense (n_songs,
-    delta_range) int32 vote histogram, per-song dedup row counts, the
-    exact match count and the budget-excluded runs."""
-    check_vote_key(n_songs, delta_range)
-    sid, delta, p, valid, total, n_dropped = _expand(
-        index, q_hi, q_lo, q_ex, q_t, q_valid, match_capacity=match_capacity)
-    # out-of-window deltas (and ids past n_songs) are dropped, like the
-    # JAX package's .at[].add(mode="drop"): mask, then add 0 at bin 0
+def _pad_top(top_songs, top_votes, topn: int):
+    """Catalogs smaller than topn: pad with song 0 and zero votes."""
+    k = top_songs.shape[1]
+    if k < topn:
+        pad = top_songs.new_zeros((top_songs.shape[0], topn - k))
+        top_songs = torch.cat([top_songs, pad], 1)
+        top_votes = torch.cat([top_votes, pad.to(top_votes.dtype)], 1)
+    return top_songs, top_votes
+
+
+def dense_rank(sid, delta, first, valid, total, n_dropped, *, n_songs: int,
+               delta_min: int, delta_range: int, topn: int) -> RawMatch:
+    """The dense rank of a (Bq, slots) stack of vote streams: one flat
+    (Bq * n_songs * delta_range) int32 histogram, read back only at the
+    bins the streams touched. Only those bins are zeroed first: a pass
+    over the whole buffer (a fill, a max) splits into more launches once
+    it passes 2 GB, and its cost grows with the catalog rather than the
+    stream. Untouched bins hold 0 votes, which the per-song maxima and
+    the winner's second bin need not read (delta_range >= 2). Out-of-
+    window deltas and ids past n_songs are dropped, like the JAX package's
+    ``.at[].add(mode="drop")``."""
+    bq = sid.shape[0]
+    dev = sid.device
+    clip = torch.arange(bq, device=dev)[:, None]
     dbin = delta - delta_min
     ok = valid & (dbin >= 0) & (dbin < delta_range) & (sid < n_songs)
-    flat = torch.where(ok, sid * delta_range + dbin, 0)
-    hist = torch.zeros(n_songs * delta_range, dtype=torch.int32,
-                       device=sid.device)
-    hist.index_add_(0, flat, ok.to(torch.int32))
+    cells = n_songs * delta_range
+    flat = torch.where(ok, clip * cells + sid * delta_range + dbin,
+                       0).reshape(-1)
+    hist = torch.empty(bq * cells, dtype=torch.int32, device=dev)
+    hist.index_fill_(0, flat, 0)   # a scalar, not a host tensor: no sync
+    hist.index_add_(0, flat, ok.reshape(-1).to(torch.int32))
+    count = torch.where(ok, hist[flat].view(ok.shape), 0)
+    first_ok = valid & first & (sid < n_songs)
+    rows_hist = torch.zeros(bq * n_songs, dtype=torch.int32, device=dev)
+    rows_hist.index_add_(
+        0, torch.where(first_ok, clip * n_songs + sid, 0).reshape(-1),
+        first_ok.reshape(-1).to(torch.int32))
+    rows_hist = rows_hist.view(bq, n_songs)
 
-    first_ok = valid & q_first[p] & (sid < n_songs)
-    rows_hist = torch.zeros(n_songs, dtype=torch.int32, device=sid.device)
-    rows_hist.index_add_(0, torch.where(first_ok, sid, 0),
-                         first_ok.to(torch.int32))
-    return hist.view(n_songs, delta_range), rows_hist, total, n_dropped
-
-
-def rank_votes(hist, rows_hist, total, *, delta_min: int, topn: int,
-               n_dropped=None) -> RawMatch:
-    """Per-song best delta + top-N ranking with the reference tie rules."""
-    votes = hist.max(dim=1).values
-    best_bin = torch.argmax(hist, dim=1)  # first max => smallest delta
-    # stable descending sort: equal votes keep ascending song order,
-    # the smallest-index tie rule of lax.top_k
+    song_at = torch.where(ok, clip * n_songs + sid, -1)
+    votes = _scatter(bq * n_songs, song_at, count, "amax").view(bq, n_songs)
+    back = votes.gather(1, torch.where(ok, sid, 0))
+    # first max: the smallest delta bin; a song without votes keeps bin 0
+    best_bin = _scatter(bq * n_songs, song_at,
+                        torch.where(ok & (count == back), dbin, _SENT),
+                        "amin", fill=_SENT).view(bq, n_songs)
+    best_bin = torch.where(best_bin == _SENT, 0, best_bin)
+    # stable descending sort: equal votes keep ascending song order, the
+    # smallest-index tie rule of lax.top_k
     vals, order = _desc(votes)
-    k = min(topn, votes.shape[0])
-    top_songs = order[:k]
-    top_votes = vals[:k]
-    if k < topn:
-        pad = torch.zeros(topn - k, dtype=top_songs.dtype, device=votes.device)
-        top_songs = torch.cat([top_songs, pad])
-        top_votes = torch.cat([top_votes, pad.to(top_votes.dtype)])
-    top_deltas = best_bin[top_songs] + delta_min
-    row_counts = rows_hist[top_songs]
-    n_ranked = (votes > 0).sum()
-
-    # strongest challenger: the 2nd-ranked song, and the winner's own
-    # 2nd-best delta bin (a tie within the song makes the delta fragile)
-    second_song = vals[1] if votes.shape[0] > 1 else votes.new_zeros(())
-    top_row = _at(hist, top_songs[0])
-    bins = torch.arange(top_row.shape[0], device=hist.device)
-    second_bin = torch.where(bins == _at(best_bin, top_songs[0]), -1,
-                             top_row).max()
+    k = min(topn, n_songs)
+    top_songs, top_votes = _pad_top(order[:, :k], vals[:, :k], topn)
+    top_deltas = best_bin.gather(1, top_songs) + delta_min
+    row_counts = rows_hist.gather(1, top_songs)
+    n_ranked = (votes > 0).sum(1)
+    # strongest challenger: the 2nd-ranked song, and the winner's own 2nd-
+    # best delta bin (a tie within the song makes the delta fragile)
+    second_song = vals[:, 1] if n_songs > 1 else votes.new_zeros(bq)
+    win = top_songs[:, :1]
+    is_second = ok & (sid == win) & (dbin != best_bin.gather(1, win))
+    second_bin = torch.where(is_second, count, 0).max(dim=1).values
     runner = torch.maximum(second_song, second_bin)
-    if n_dropped is None:
-        n_dropped = torch.zeros((), dtype=torch.int64, device=hist.device)
     return RawMatch(top_songs, top_deltas, top_votes, row_counts, total,
                     n_ranked, n_dropped, runner)
+
+
+def sort_rank(sid, delta, first, valid, total, n_dropped, *, n_songs: int,
+              delta_min: int, delta_range: int, topn: int,
+              prefix: int = 0) -> RawMatch:
+    """Sort + run-length vote count + rank of a (Bq, slots) stack of vote
+    streams, with no (n_songs, delta_range) table: one sort of (query,
+    vote key) composite keys, O(stream) work plus two O(Bq * n_songs)
+    arrays. ``prefix``: every live key of a blocked stream sorts into its
+    first ``prefix`` slots, so the passes after the sort run there."""
+    bq, cap = sid.shape
+    dev = sid.device
+    clip = torch.arange(bq, device=dev)[:, None]
+    dbin = delta - delta_min
+    # ids past n_songs are non-votes, as in the scatters that follow
+    vote_ok = (valid & (dbin >= 0) & (dbin < delta_range) & (sid >= 0)
+               & (sid < n_songs))
+    key = torch.where(vote_ok, sid * delta_range + dbin, _SENT)
+    top = clip << _CLIP_SHIFT
+    ks = (torch.sort((key + top).reshape(-1)).values.view(bq, cap) - top)
+    if prefix and prefix < cap:
+        ks = ks[:, :prefix]
+        cap = prefix
+    live = ks != _SENT
+    change = torch.ones_like(live)
+    change[:, 1:] = ks[:, 1:] != ks[:, :-1]
+    seg_id = torch.cumsum((live & change).long(), 1) - 1
+    seg = clip * cap + torch.where(live, seg_id, cap - 1)
+    counts_seg = _scatter(bq * cap, seg, live, "sum").view(bq, cap)
+    key_seg = _scatter(bq * cap, seg, torch.where(live, ks, _SENT), "amin",
+                       fill=_SENT).view(bq, cap)
+
+    seg_live = key_seg != _SENT
+    song_seg = torch.where(seg_live, key_seg // delta_range, n_songs)
+    dbin_seg = torch.where(seg_live, key_seg % delta_range, 0)
+    song_at = torch.where(seg_live, clip * n_songs + song_seg, -1)
+    votes = _scatter(bq * n_songs, song_at, counts_seg, "amax").view(
+        bq, n_songs)
+    back = votes.gather(1, torch.clamp(song_seg, max=n_songs - 1))
+    is_best = seg_live & (counts_seg == back)
+    best_bin = _scatter(bq * n_songs, song_at,
+                        torch.where(is_best, dbin_seg, _SENT), "amin",
+                        fill=_SENT).view(bq, n_songs)
+    sid_at = torch.where((sid >= 0) & (sid < n_songs), clip * n_songs + sid,
+                         -1)
+    rows_hist = _scatter(bq * n_songs, sid_at, valid & first, "sum").view(
+        bq, n_songs)
+
+    k = min(topn, n_songs)
+    vals, order = _desc(votes)
+    top_songs, top_votes = _pad_top(order[:, :k], vals[:, :k], topn)
+    bb = best_bin.gather(1, top_songs)
+    # zero-vote songs (catalogs smaller than topn): the dense rank gives
+    # bin 0 -> delta_min; mirror it
+    top_deltas = torch.where(bb == _SENT, 0, bb) + delta_min
+    row_counts = rows_hist.gather(1, top_songs)
+    n_ranked = (votes > 0).sum(1)
+
+    # strongest challenger (see dense_rank), from the segment arrays
+    second_song = vals[:, 1] if n_songs >= 2 else votes.new_zeros(bq)
+    win = top_songs[:, :1]
+    is_second = (song_seg == win) & (dbin_seg != best_bin.gather(1, win))
+    second_bin = torch.where(is_second, counts_seg, 0).max(dim=1).values
+    runner = torch.maximum(second_song, second_bin)
+    return RawMatch(top_songs, top_deltas, top_votes, row_counts, total,
+                    n_ranked, n_dropped, runner)
+
+
+def _solo(rank, sid, delta, first, valid, total, n_dropped, **kw) -> RawMatch:
+    """A stack rank on one flat vote stream: its (topn,) and 0-dim row."""
+    if n_dropped is None:
+        n_dropped = _zero(sid)
+    raw = rank(*(torch.as_tensor(a)[None] for a in (sid, delta, first, valid,
+                                                    total, n_dropped)), **kw)
+    return RawMatch(*(a[0] for a in raw))
 
 
 def match_query(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, q_first,
                 *, n_songs: int, delta_min: int, delta_range: int,
                 match_capacity: int = 65536, topn: int = 2) -> RawMatch:
-    """Match padded query pairs against the sorted device index.
+    """Match padded query pairs against the sorted device index with the
+    dense rank.
 
     :param q_*: query (hash, offset) pairs padded to a static length;
         ``q_valid`` masks real pairs; ``q_first`` marks the first pair of
         each distinct hash (for dedup row counting).
     :param delta_min: smallest representable delta (-max query offset).
     """
-    hist, rows_hist, total, n_dropped = match_local(
-        index, q_hi, q_lo, q_ex, q_t, q_valid, q_first, n_songs=n_songs,
-        delta_min=delta_min, delta_range=delta_range,
-        match_capacity=match_capacity)
-    return rank_votes(hist, rows_hist, total, delta_min=delta_min, topn=topn,
-                      n_dropped=n_dropped)
+    check_vote_key(n_songs, delta_range)
+    sid, delta, p, valid, total, n_dropped = _expand(
+        index, q_hi, q_lo, q_ex, q_t, q_valid, match_capacity=match_capacity)
+    return _solo(dense_rank, sid, delta, q_first[p], valid, total, n_dropped,
+                 n_songs=n_songs, delta_min=delta_min,
+                 delta_range=delta_range, topn=topn)
 
 
 def _sparse_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
                       n_songs: int, delta_min: int, delta_range: int,
                       topn: int, prefix: int = 0) -> RawMatch:
-    """Sort + run-length vote count + rank over flat expanded vote slots,
-    with no (n_songs, delta_range) table: O(stream) work plus two
-    O(n_songs) arrays. ``prefix``: every live key of a blocked stream
-    sorts into its first ``prefix`` slots, so the passes after the sort
-    run there."""
-    cap = sid.shape[0]
-    dbin = delta - delta_min
-    vote_ok = valid & (dbin >= 0) & (dbin < delta_range)
-
-    key = torch.where(vote_ok, sid * delta_range + dbin, _SENT)
-    ks = torch.sort(key).values
-    if prefix and prefix < cap:
-        ks = ks[:prefix]
-        cap = prefix
-    live = ks != _SENT
-    change = torch.ones_like(live)
-    change[1:] = ks[1:] != ks[:-1]
-    run_start = live & change
-    seg_id = torch.cumsum(run_start.long(), 0) - 1
-    safe_seg = torch.where(live, seg_id, cap - 1)
-    counts_seg = _scatter(cap, safe_seg, live, "sum")
-    key_seg = _scatter(cap, safe_seg, torch.where(live, ks, _SENT), "amin",
-                       fill=_SENT)
-
-    seg_live = key_seg != _SENT
-    song_seg = torch.where(seg_live, key_seg // delta_range, n_songs)
-    dbin_seg = torch.where(seg_live, key_seg % delta_range, 0)
-
-    votes_per_song = _scatter(n_songs, song_seg, counts_seg, "amax")
-    back = votes_per_song[torch.clamp(song_seg, max=n_songs - 1)]
-    is_best = seg_live & (counts_seg == back)
-    best_bin = _scatter(n_songs, song_seg,
-                        torch.where(is_best, dbin_seg, _SENT), "amin",
-                        fill=_SENT)
-    rows_hist = _scatter(n_songs, sid, valid & first, "sum")
-
-    k = min(topn, n_songs)
-    vals, order = _desc(votes_per_song)
-    top_votes, top_songs = vals[:k], order[:k]
-    if k < topn:
-        top_votes = torch.cat([top_votes, top_votes.new_zeros(topn - k)])
-        top_songs = torch.cat([top_songs, top_songs.new_zeros(topn - k)])
-    bb = best_bin[top_songs]
-    # zero-vote songs (catalogs smaller than topn): the dense argmax
-    # gives bin 0 -> delta_min; mirror it
-    top_deltas = torch.where(bb == _SENT, 0, bb) + delta_min
-    row_counts = rows_hist[top_songs]
-    n_ranked = (votes_per_song > 0).sum()
-
-    # strongest challenger (see rank_votes): the 2nd-ranked song and the
-    # winner's 2nd-best delta bin, from the same segment arrays
-    second_song = vals[1] if n_songs >= 2 else _zero(sid)
-    win = top_songs[0]
-    is_second = (song_seg == win) & (dbin_seg != _at(best_bin, win))
-    second_bin = torch.where(is_second, counts_seg, 0).max()
-    runner = torch.maximum(second_song, second_bin)
-    if n_dropped is None:
-        n_dropped = _zero(sid)
-    return RawMatch(top_songs, top_deltas, top_votes, row_counts, total,
-                    n_ranked, n_dropped, runner)
+    """``sort_rank`` of one flat vote stream."""
+    return _solo(sort_rank, sid, delta, first, valid, total, n_dropped,
+                 n_songs=n_songs, delta_min=delta_min,
+                 delta_range=delta_range, topn=topn, prefix=prefix)
 
 
 def _scan_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
@@ -471,7 +512,7 @@ def _scan_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
     song_change[1:] = song[1:] != song[:-1]
     n_ranked = (run_start & song_change).sum()
 
-    # strongest challenger (see rank_votes)
+    # strongest challenger (see dense_rank)
     win = top_songs[0]
     second_song = (torch.clamp(torch.where(song == win, 0, count).max(),
                                min=0) if n_songs >= 2 else zero)

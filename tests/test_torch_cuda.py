@@ -316,3 +316,105 @@ def test_recognize_clip_syncs_only_to_copy(cuda, cfg):
     assert ({k: v for k, v in got.items() if k not in timing}
             == {k: v for k, v in want.items() if k not in timing})
     assert got["results"][0]["song_name"] == "s1"
+
+
+def test_kernels_on_a_mixed_batch(cuda):
+    """K1-K3 on the shapes recognize_batch and file ingest hand them: an
+    empty row (n_valid = 0, pad_to_pow2's padding), a 5 s row, a 15 s row
+    and a resampled row whose length is no multiple of the hop, in one
+    bucket. K1 within 1e-3 dB of its twin, K2 and K3 bit-exact; the empty
+    row gives exact zeros, an empty mask and no peaks."""
+    from shazam_tpu_torch.audio.resample import resample_channel
+    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
+    from shazam_tpu_torch.ops.peaks import compact_plain, peak_mask_plain
+    from shazam_tpu_torch.ops.spectrogram import (db_spectrogram,
+                                                  spectrogram_power_plain,
+                                                  valid_frames)
+
+    rows = [np.zeros(0, np.int16), synth_song(1, 5.0, seed=3),
+            synth_song(2, 15.0, seed=3),
+            resample_channel(synth_song(3, 9.0, fs=48000, seed=3), 48000,
+                             44100)]
+    x = np.zeros((len(rows), 786_432), np.float32)
+    for i, r in enumerate(rows):
+        x[i, : len(r)] = r
+    nv = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+    xs = torch.from_numpy(x).to(cuda)
+    nvf = valid_frames(nv, 4096, 2048).to(cuda)
+    power = spectrogram.spectrogram_power(xs, nvf)
+    ref = spectrogram_power_plain(xs, nvf)
+    assert (db_spectrogram(power) - db_spectrogram(ref)).abs().max() < 1e-3
+    assert torch.equal(power == 0, ref == 0) and not power[0].any()
+    bits = peaks.peak_mask(power, 10.0)
+    assert torch.equal(bits, peak_mask_plain(power, 10.0))
+    assert not bits[0].any()
+    got = compact.compact(bits, 8192)
+    for a, b in zip(got, compact_plain(bits, 8192)):
+        assert torch.equal(a, b)
+    assert int(got[2][0]) == 0 and not got[0][0].any()
+    assert all(int(n) > 0 for n in got[2][1:])
+
+
+def test_recognize_batch_on_cuda_equals_cpu(cuda):
+    """recognize_batch on the card answers as on the CPU, dense and sparse,
+    with a padding row and mixed clip lengths."""
+    import dataclasses
+
+    from shazam_tpu_torch.api import SIA
+
+    songs = [(f"s{i}", synth_song(i, 10.0, seed=5)) for i in range(4)]
+    gpu, cpu = SIA(device="cuda"), SIA(device="cpu")
+    gpu.ingest_arrays(songs)
+    cpu.ingest_arrays(songs)
+    clips = [songs[i][1][(10 + 9 * i) * 2048:][: int((3 + 2 * i) * 44100)]
+             for i in range(3)]
+    timing = ("fingerprint_time", "query_time", "align_time", "total_time",
+              "batch_fingerprint_time", "batch_query_time")
+    for cfg in ({}, {"sparse_vote_threshold": 0}):
+        for sia in (gpu, cpu):
+            sia.config = dataclasses.replace(sia.config, **cfg)
+        got = gpu.recognize_batch(clips, pad_to_pow2=True)
+        want = cpu.recognize_batch(clips, pad_to_pow2=True)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert ({k: v for k, v in g.items() if k not in timing}
+                    == {k: v for k, v in w.items() if k not in timing})
+            assert g["results"][0]["song_name"] == f"s{i}"
+
+
+@pytest.mark.parametrize("rank", ["dense", "sort"])
+def test_batched_dispatch_launches_do_not_grow(cuda, rank):
+    """One match_queries_batched dispatch makes as many launches (kernels,
+    copies, memsets) at B = 8 and at B = 32 as at B = 2, counted from the
+    host's launch calls: the batch is one dispatch, not a loop
+    over clips. The vote space is a 2,714-song catalog's (3,000 songs x
+    6,144 delta bins), so the dense histogram passes 2 GB at B = 32."""
+    from shazam_tpu_torch.index import store
+    from shazam_tpu_torch.match.batched import match_queries_batched
+    from shazam_tpu_torch.profiling import host_launches
+
+    rng = np.random.default_rng(9)
+    n = 40_000
+    cols = [rng.integers(0, 1 << 9, n), rng.integers(0, 8, n),
+            rng.integers(0, 4, n), rng.integers(0, 200, n),
+            rng.integers(0, 600, n)]
+    cols = [a.astype(np.uint32) for a in cols]
+    order = np.lexsort(cols[::-1])
+    ix = store.from_numpy(*(a[order] for a in cols), 200, 599)
+    dev = ix.device_arrays(cuda)
+    qi = rng.integers(0, n, (32, 1024))
+    q = [torch.from_numpy(cols[k][order][qi].astype(np.int64)).to(cuda)
+         for k in range(3)]
+    q += [torch.from_numpy(rng.integers(0, 300, (32, 1024))).to(cuda),
+          torch.ones((32, 1024), dtype=torch.bool, device=cuda),
+          torch.ones((32, 1024), dtype=torch.bool, device=cuda)]
+    kw = dict(rank=rank, n_songs=3000, delta_min=-1024, delta_range=6144,
+              match_capacity=65536, topn=2,
+              expand_block=128 if rank == "sort" else 0, expand_runs=1024)
+
+    def run(bq):
+        return lambda: match_queries_batched(dev, *(a[:bq] for a in q), **kw)
+
+    for bq in (2, 8, 32):
+        run(bq)()
+    counts = {bq: host_launches(run(bq))[0] for bq in (2, 8, 32)}
+    assert counts[2] == counts[8] == counts[32], counts

@@ -21,6 +21,16 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import sys\n"
         "import shazam_tpu_torch.api, shazam_tpu_torch.ops.cuda.compact\n"
         "import shazam_tpu_torch.ops.cuda.peaks, shazam_tpu_torch.ops.cuda.spectrogram\n"
+        "import shazam_tpu_torch.audio.io, shazam_tpu_torch.audio.mp3\n"
+        "import shazam_tpu_torch.audio.resample, shazam_tpu_torch.match.batched\n"
+        "import shazam_tpu_torch.index.store, shazam_tpu_torch.profiling\n"
+        "from shazam_tpu_torch.api import SIA\n"
+        "for name in ('ingest_files', 'ingest_directory', 'ingest_channels',\n"
+        "             'recognize_file', 'recognize_batch', 'prepare_batch',\n"
+        "             'match_prepared_batch'):\n"
+        "    assert callable(getattr(SIA, name)), name\n"
+        "shazam_tpu_torch.audio.resample.resample_channel(\n"
+        "    __import__('numpy').zeros(480, 'int16'), 48000, 44100)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'shazam_tpu'))\n"
         "assert not bad, bad\n"

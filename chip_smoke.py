@@ -10,18 +10,24 @@ Phases (each raises on failure; any failure exits non-zero):
 1. build: compile the hand-written kernels ``shazam_tpu_torch/csrc/*.cu``
    with nvcc (sm_90a) and load them;
 2. kernels: run K1 (spectrogram), K2 (peak mask) and K3 (compaction) on
-   the card at every shape phases 3-5 give them (``_kernel_inputs``) --
+   the card at the shapes phases 3-6 give them (``_kernel_inputs``,
+   ``check_stream_kernels``) --
    ingest (8, 1,572,864) samples, 767 frames, peak capacity 16384; clip
    (1, 262,144), 127 frames, capacity 8192; phase 4's 15 s clip (1,
-   786,432), 383 frames, capacity 8192; phase 5's batches of 15 s clips,
-   (8, 786,432) with 3 empty rows and (32, 786,432), capacity 8192; a
-   streamed file batch of stereo int16 and float32 rows and a resampled
-   48 kHz file, (8 or 1, 1,572,864), capacity 16384; a resampled 10 s
-   clip file (1, 524,288), capacity 8192 -- and hold each against its
-   plain PyTorch twin on the same inputs: K1 in dB, max |diff| < 1e-3 dB
-   with exact zeros equal (both compute in float64; the distance of an
-   f32 FFT from the twin is printed beside it, as the gap the bound has
-   to tell apart); K2 and K3 bit-exact.
+   786,432), 383 frames, capacity 8192; batches of 15 s clips, (2, 4 or
+   8, 786,432) with an empty row or three and (32, 786,432), capacity
+   8192; a streamed file batch of stereo int16 and float32 rows and a
+   resampled 48 kHz file, (8 or 1, 1,572,864), capacity 16384; a
+   resampled 10 s clip file (1, 524,288), capacity 8192; phase 6's
+   streams: K1 on one device ring quantum (1, 34,816), 16 frames, and on
+   the host engine's feeds of 4, 1 and 6 frames, K2 on the (1, 36,
+   2,049), (1, 20, 2,049) and (1, 24, 2,049) slabs, K3 on a (1, 321, 65)
+   window at capacity 8,192 -- and hold each against its plain PyTorch
+   twin on the same inputs: K1 in dB, max |diff| < 1e-3 dB with exact
+   zeros equal (both compute in float64; the distance of an f32 FFT from
+   the twin is printed beside it, as the gap the bound has to tell
+   apart); K2 and K3 bit-exact. Phase 6 also holds, on its own inputs,
+   the first launch at every shape it makes (``ShapeAudit``).
    Kernel and plain times (``ms``, ``plain_ms``) are CUDA-event medians
    over back-to-back calls, host launch time included; ``device_ms`` is the
    kernel's own duration in a ``torch.profiler`` trace, the median of a
@@ -77,7 +83,27 @@ Phases (each raises on failure; any failure exits non-zero):
    printed, and one batched match dispatch must make as many launches
    (kernels, copies, memsets) at B = 32 as at B = 8, counted from the
    host's runtime launch calls in ``torch.profiler`` traces
-   (``profiling.host_launches``). K1-K3 must launch in this phase.
+   (``profiling.host_launches``). K1-K3 must launch in this phase;
+6. serve and stream, on phase 5's SIA (2,842 songs): (a) an in-process
+   ``RecognitionServer`` (max_batch 16, 10 ms wait) answers 64 mono 15 s
+   WAV clips (phase 4's 32 and 32 new ones across all songs, 8 of them
+   dense enough to overflow the batch's peak capacity, so that their
+   solo retries run K1-K3 on the match thread) and 4 stereo requests
+   from 8 client threads, with the pipeline on and then off: every
+   answer right and equal to ``recognize_samples`` on the clip alone by
+   phase 5's rule, /stats with no error, fewer batches than requests and
+   a batch larger than 1; (b) /ingest of two songs, /delete of one, /save,
+   a fresh SIA from the snapshot passing ``tools.fsck`` and answering
+   alike, and a daemon with a token refusing /ingest without it; (c) per
+   stream engine a /stream session of 2 channels and a 15 s window fed
+   20 s of a stereo song, recognized right after 16 s and at the end,
+   and the same chunks into an in-process ``StreamRecognizer`` whose
+   windows are bit-equal to ``fingerprint_batch_fused`` of their samples,
+   with no fallback once ready. K1-K3 must launch in this phase, and the
+   first launch of each kernel at each distinct shape in this phase (the
+   daemon's padded micro-batches, stereo requests, the retries, both
+   stream engines' feeds, slabs and windows) is held against its twin on
+   the same inputs, at phase 2's tolerances (``ShapeAudit``).
 
 It prints the card's name and power limit, build seconds, per-kernel
 times, ingest seconds and rows, clip latencies and the idle shares, then
@@ -102,11 +128,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import json
 import multiprocessing as mp
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -143,6 +171,16 @@ FILE_CLIP_S = 10.0
 # batches, pad_to_pow2): four batches of 8, one of 32, one of 5 padded to 8
 BATCH_PLAN = ((8, 4, False), (32, 1, False), (5, 1, True))
 BATCH_CONFIGS = (("default", {}), ("dense", dict(sparse_vote_threshold=1 << 31)))
+# phase 6: 32 new 15 s clips (8 of them dense) beside phase 4's 32, sent by
+# 8 client threads, plus 4 stereo requests; streams of 20 s, 15 s windows
+SERVE_NEW_CLIPS = 32
+DENSE_CLIPS = 8
+DENSE_NOISE_S = 6.0
+SERVE_THREADS = 8
+SERVE_STEREO = 4
+STREAM_S = 20.0
+STREAM_WINDOW_S = 15.0
+STREAM_FIRST_RECOGNIZE_S = 16.0
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
 F64_FLOP_S = 34e12      # float64 outside the tensor cores
 F32_FLOP_S = 67e12      # float32 outside the tensor cores
@@ -306,14 +344,139 @@ def _wrappers() -> dict:
     return {name: mod.KERNEL for name, mod in _modules().items()}
 
 
+def _card_view(ptr: int, shape: tuple, typestr: str):
+    """A torch tensor over ``shape`` elements of ``typestr`` at the raw
+    device pointer ``ptr`` (through ``__cuda_array_interface__``)."""
+    import torch
+
+    if not int(np.prod(shape)):
+        return torch.empty(shape, dtype=torch.float32 if typestr == "<f4"
+                           else torch.int32, device="cuda")
+
+    class View:
+        __cuda_array_interface__ = {"shape": tuple(shape), "typestr": typestr,
+                                    "data": (ptr, False), "strides": None,
+                                    "version": 2}
+
+    return torch.as_tensor(View())
+
+
+def _launch_arrays(name: str, a: tuple):
+    """(shape key, inputs, outputs, scalars) of one launch of kernel
+    ``name`` from its C arguments ``a`` (the wrappers' ``KERNEL`` calls),
+    each array as (pointer, shape, typestr)."""
+    if name == "spectrogram_power":   # samples, N, nvf, B, T, hop, ..., out
+        n, bsz, t = a[1], a[3], a[4]
+        return ((bsz, n), [(a[0], (bsz, n), "<f4"), (a[2], (bsz,), "<i4")],
+                [(a[10], (bsz, t, 2049), "<f4")],
+                {"hop": a[5], "scales": (a[8], a[9])})
+    if name == "peak_mask":            # power, B, T, threshold, bits
+        bsz, t = a[1], a[2]
+        return ((bsz, t), [(a[0], (bsz, t, 2049), "<f4")],
+                [(a[4], (bsz, t, 65), "<i4")], {"threshold": a[3]})
+    bsz, t, cap = a[1], a[2], a[3]    # bits, B, T, cap, times, freqs, n
+    return ((bsz, t, cap), [(a[0], (bsz, t, 65), "<i4")],
+            [(a[4], (bsz, cap), "<i4"), (a[5], (bsz, cap), "<i4"),
+             (a[6], (bsz,), "<i4")], {})
+
+
+class ShapeAudit:
+    """Holds each kernel's first launch at every distinct shape a phase
+    gives it against the kernel's plain twin on the same inputs.
+
+    While entered it stands in for each wrapper module's ``KERNEL``, so
+    every launch of the phase, from any thread, passes through it. At a
+    shape's first launch it copies the inputs and, once launched, the
+    outputs (on the launching thread's stream, in order with the kernel);
+    :meth:`check` runs the twins on the copies. It launches no kernel of
+    its own, so the launch counters count only the phase."""
+
+    def __init__(self, config):
+        self.config = config
+        self.first: dict = {}   # (kernel, shape) -> (inputs, outputs, scalars)
+        self.lock = threading.Lock()
+        self.kernels: dict = {}
+
+    def __enter__(self):
+        for name, mod in _modules().items():
+            self.kernels[name] = mod.KERNEL
+            mod.KERNEL = functools.partial(self._launch, name, mod.KERNEL)
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in _modules().items():
+            mod.KERNEL = self.kernels[name]
+
+    def _launch(self, name, kernel, *args, stream=None):
+        if len(args) != len(kernel.argtypes):
+            raise AssertionError(f"{name}: {len(args)} arguments, the C "
+                                 f"entry point takes {len(kernel.argtypes)}")
+        key, ins, outs, scalars = _launch_arrays(name, args)
+        with self.lock:
+            first = (name, key) not in self.first
+            if first:
+                self.first[name, key] = None
+        if first:
+            ins = [_card_view(*a).clone() for a in ins]
+        kernel(*args, stream=stream)
+        if first:
+            outs = [_card_view(*a).clone() for a in outs]
+            with self.lock:
+                self.first[name, key] = (ins, outs, scalars)
+
+    def check(self) -> dict:
+        """Each recorded launch against its twin; raises on a difference.
+        Returns {kernel name: [[shape, max err], ...]} (K1's in dB)."""
+        import torch
+
+        from shazam_tpu_torch.ops.peaks import (compact_plain,
+                                                peak_mask_plain,
+                                                power_threshold)
+        from shazam_tpu_torch.ops.spectrogram import (db_spectrogram,
+                                                      psd_scales,
+                                                      spectrogram_power_plain)
+
+        cfg = self.config
+        out = {name: [] for name in _modules()}
+        for (name, key), rec in sorted(self.first.items()):
+            if rec is None:
+                raise AssertionError(f"{name} at {key}: the launch failed")
+            ins, (got, *more), scalars = rec
+            if name == "spectrogram_power":
+                if scalars["scales"] != psd_scales(4096, cfg.sample_rate):
+                    raise AssertionError(f"K1 at {key}: PSD scales differ")
+                want = spectrogram_power_plain(*ins, fs=cfg.sample_rate,
+                                               hop=scalars["hop"])
+                err = float((db_spectrogram(got) - db_spectrogram(want))
+                            .abs().max()) if got.numel() else 0.0
+                ok = err < K1_DB_BOUND and torch.equal(got == 0, want == 0)
+            elif name == "peak_mask":
+                if scalars["threshold"] != power_threshold(cfg.amp_min):
+                    raise AssertionError(f"K2 at {key}: gate differs")
+                err = int((got != peak_mask_plain(ins[0], cfg.amp_min)).sum())
+                ok = err == 0
+            else:
+                want = compact_plain(ins[0], key[2])
+                err = max(int((a.long() - b.long()).abs().max())
+                          for a, b in zip((got, *more), want))
+                ok = err == 0
+            if not ok:
+                raise AssertionError(f"{name} at {key}: its first launch "
+                                     f"differs from the plain twin ({err})")
+            out[name].append([list(key), err])
+        return out
+
+
 def _kernel_inputs():
     """Phase 2's inputs, [(label, rows, peak capacity)], each padded to its
     bucket as the main path pads it: phase 3's ingest (8 x 30 s songs)
-    and 5 s clip, phase 4's 15 s clip, and phase 5's shapes --
-    recognize_batch's 5 clips padded with 3 empty rows (pad_to_pow2) and
-    its 32 clips, a streamed file batch of stereo int16 and float32 rows,
-    a resampled 48 kHz file, and a resampled 10 s clip file as
-    recognize_file reads them."""
+    and 5 s clip, phase 4's 15 s clip, phase 6's daemon micro-batches of
+    15 s clips padded to 2 and 4 rows with an empty row (pad_to_pow2; a
+    stereo request has the 2-row shape), and phase 5's shapes --
+    recognize_batch's 5 clips padded with 3 empty rows and its 32 clips,
+    a streamed file batch of stereo int16 and float32 rows, a resampled
+    48 kHz file, and a resampled 10 s clip file as recognize_file reads
+    them."""
     import tempfile
 
     from shazam_tpu_torch.audio import read, synth_song
@@ -336,11 +499,112 @@ def _kernel_inputs():
     return (("ingest", songs, 16384),
             ("clip", [synth_song(0, CLIP_S, seed=0)], 8192),
             ("big_clip", clips[:1], 8192),
+            ("batch_2_padded", clips[:1] + [np.zeros(0, np.int16)], 8192),
+            ("batch_4_padded", clips[:3] + [np.zeros(0, np.int16)], 8192),
             ("batch_8_padded", clips[:5] + [np.zeros(0, np.int16)] * 3, 8192),
             ("batch_32", clips, 8192),
             ("file_batch", streamed, 16384),
             ("file_resampled", resampled, 16384),
             ("file_clip", file_clip, 8192))
+
+
+def _measure(name, label, kfn, pfn, err, lib_fn, bound) -> dict:
+    """One kernel at one shape, timed against its plain twin (and the
+    library call, where there is one); printed and returned."""
+    ms, plain_ms = _timed_pair(kfn, pfn)
+    bound_ms, bound_by = bound
+    rec = {"ms": ms, "plain_ms": plain_ms, "device_ms": _device_ms(kfn),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, "library_device_ms": None, "err": err}
+    if lib_fn is not None:
+        lib_fn()
+        rec["library_ms"] = float(np.median(
+            [_event_ms(lib_fn) for _ in range(5)]))
+        rec["library_device_ms"] = _device_ms(lib_fn)
+    print(f"kernel {name} {label}: {ms:.4f} ms, "
+          f"device {rec['device_ms']} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), plain {plain_ms:.4f} ms, library "
+          f"{rec['library_ms']} ms (device "
+          f"{rec['library_device_ms']}), max_abs_err {err}"
+          + (" dB" if name == "spectrogram_power" else ""), flush=True)
+    return rec
+
+
+def check_stream_kernels(device, out: dict) -> None:
+    """Phase 2 at phase 6's stream shapes, which are not padded batches:
+    K1 on one device ring quantum, (1, 34,816) samples with 16 valid
+    frames, and on the host engine's feeds (``stream.IncrementalFingerprinter``
+    runs K1 on each feed's new frames: 4 per CHUNK once a hop of residual
+    is carried, 1 and 6 after the odd feeds of 3,001 and 12,345 samples);
+    K2 on the device engine's settle and right-strip slab (1, 36, 2,049),
+    the left-strip and host edge-strip slab (1, 20, 2,049) and the host
+    engine's settle slab of one CHUNK, 4 + 2 radius rows (1, 24, 2,049);
+    K3 on a 15 s window's mask (1, 321, 65) at capacity 8,192. Each is
+    held against its twin as in ``check_kernels`` and timed beside the
+    other shapes."""
+    import torch
+
+    from shazam_tpu_torch.ops.cuda import compact as k3
+    from shazam_tpu_torch.ops.cuda import peaks as k2
+    from shazam_tpu_torch.ops.cuda import spectrogram as k1
+    from shazam_tpu_torch.ops.peaks import (compact_plain, peak_mask_plain,
+                                            unpack_mask_bits)
+    from shazam_tpu_torch.ops.spectrogram import (db_spectrogram, hann_window,
+                                                  spectrogram_power_plain)
+    from shazam_tpu_torch.stream_device import FRAME_STEP
+
+    song = _song(7).astype(np.float32)
+    for label, n_frames in (("stream_quantum", FRAME_STEP),
+                            ("host_feed_4", 4), ("host_feed_1", 1),
+                            ("host_feed_6", 6)):
+        block = (n_frames - 1) * HOP + 4096
+        x = torch.from_numpy(song[HOP * 160: HOP * 160 + block]).to(device)[None]
+        nv = torch.tensor([n_frames], dtype=torch.int32, device=device)
+        power = k1.spectrogram_power(x, nv)
+        power_p = spectrogram_power_plain(x, nv)
+        err = float((db_spectrogram(power) - db_spectrogram(power_p)).abs().max())
+        if not (err < K1_DB_BOUND and torch.equal(power == 0, power_p == 0)):
+            raise AssertionError(f"K1 {label}: max|ddB| {err}")
+        frames = (x.unfold(1, 4096, HOP).to(torch.float64)
+                  * hann_window(4096, device))
+        out["spectrogram_power"][label] = _measure(
+            "spectrogram_power", f"{label} (1, {block})",
+            lambda x=x, nv=nv: k1.spectrogram_power(x, nv),
+            lambda x=x, nv=nv: spectrogram_power_plain(x, nv), err,
+            lambda frames=frames: torch.fft.rfft(frames, dim=-1),
+            kernel_bounds(block, np.array([n_frames]), n_frames,
+                          1)["spectrogram_power"])
+
+    # a 15 s window's power (321 frames), and slabs cut from it
+    win = int(BIG_CLIP_S * FS)
+    n_win = (win - 4096) // HOP + 1
+    xw = torch.from_numpy(song[: win]).to(device)[None]
+    pw = k1.spectrogram_power(
+        xw, torch.tensor([n_win], dtype=torch.int32, device=device))
+    for label, rows in (("stream_slab_36", 36), ("stream_slab_20", 20),
+                        ("host_slab_24", 24)):
+        slab = pw[:, 100: 100 + rows].contiguous()
+        bits, want = k2.peak_mask(slab, 10.0), peak_mask_plain(slab, 10.0)
+        bad = int((bits != want).sum())
+        if bad:
+            raise AssertionError(f"K2 {label}: {bad} mask words differ")
+        out["peak_mask"][label] = _measure(
+            "peak_mask", f"{label} {tuple(slab.shape)}",
+            lambda slab=slab: k2.peak_mask(slab, 10.0),
+            lambda slab=slab: peak_mask_plain(slab, 10.0), bad, None,
+            kernel_bounds(0, np.array([rows]), rows, 1)["peak_mask"])
+    bits = k2.peak_mask(pw, 10.0)
+    cap = 8192
+    got, want = k3.compact(bits, cap), compact_plain(bits, cap)
+    bad = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    if bad:
+        raise AssertionError("K3 stream_window: (times, freqs, n_peaks) differ")
+    mask = unpack_mask_bits(bits)
+    out["compact"]["stream_window"] = _measure(
+        "compact", f"stream_window {tuple(bits.shape)}",
+        lambda: k3.compact(bits, cap), lambda: compact_plain(bits, cap), bad,
+        lambda: torch.nonzero(mask),
+        kernel_bounds(0, np.array([n_win]), n_win, cap)["compact"])
 
 
 def check_kernels(device, baselines=None) -> dict:
@@ -438,23 +702,8 @@ def check_kernels(device, baselines=None) -> dict:
              lambda: torch.nonzero(mask)),
         )
         for name, kfn, pfn, e, lib_fn in timings:
-            ms, plain_ms = _timed_pair(kfn, pfn)
-            bound_ms, bound_by = bounds[name]
-            rec = {"ms": ms, "plain_ms": plain_ms, "device_ms": _device_ms(kfn),
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None, "library_device_ms": None, "err": e}
-            if lib_fn is not None:
-                lib_fn()
-                rec["library_ms"] = float(np.median(
-                    [_event_ms(lib_fn) for _ in range(5)]))
-                rec["library_device_ms"] = _device_ms(lib_fn)
-            out[name][label] = rec
-            print(f"kernel {name} {label} {tuple(batch.shape)}: {ms:.4f} ms, "
-                  f"device {rec['device_ms']} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), plain {plain_ms:.4f} ms, library "
-                  f"{rec['library_ms']} ms (device "
-                  f"{rec['library_device_ms']}), max_abs_err {e}"
-                  + (" dB" if name == "spectrogram_power" else ""), flush=True)
+            out[name][label] = _measure(name, f"{label} {tuple(batch.shape)}",
+                                        kfn, pfn, e, lib_fn, bounds[name])
         del frames, mask
         checks = {"spectrogram_power": (k1, k1_err, " dB"),
                   "peak_mask": (k2, k2_err, ""),
@@ -488,6 +737,7 @@ def check_kernels(device, baselines=None) -> dict:
         print(f"K1 {label}: max|ddB| {k1_e:.3g} (bound {K1_DB_BOUND}); an "
               f"f32 torch.fft.rfft is {f32_err:.6f} dB from the same float64 "
               f"twin; n_peaks {got[2].tolist()}", flush=True)
+    check_stream_kernels(device, out)
     return out
 
 
@@ -1034,6 +1284,491 @@ def files_and_batches(sia, first_id: int, n_files: int, big_clips, seed: int,
     return out
 
 
+def _dense(clip: np.ndarray, rng) -> np.ndarray:
+    """A clip whose first DENSE_NOISE_S seconds are seeded broadband noise
+    that repeats every hop, the rest the song. Frames inside the noise are
+    identical, so every frequency-local maximum ties with its neighbors in
+    time and counts as a peak: about 12,000 in a 15 s clip, past the
+    batch's peak capacity of 8,192. (Untied audio cannot get there: two
+    distinct peaks of a 21 x 21 neighborhood lie at least 11 cells apart,
+    at most 5,430 peaks in 321 frames, and random noise gives about 1 in
+    441 cells.)"""
+    n = int(DENSE_NOISE_S * FS)
+    period = rng.normal(0, 8000.0, HOP)
+    out = clip.copy()
+    out[:n] = np.clip(np.tile(period, -(-n // HOP))[:n], -32768,
+                      32767).astype(np.int16)
+    return out
+
+
+def _catalog_song(sid: int, file_first: int):
+    """(samples, rate) of catalog song ``sid`` as phases 3-5 ingested it:
+    a 30 s song at 44.1 kHz, or phase 5's file song (the left channel of
+    a stereo file; 48 kHz where phase 5 synthesized it so)."""
+    if sid < file_first:
+        return _song(sid), FS
+    samples, fs, _kind = _file_song(sid)
+    return samples, fs
+
+
+def _catalog_rate(sid: int, file_first: int) -> int:
+    """The rate ``_catalog_song`` returns, without synthesizing."""
+    return (48000 if sid >= file_first
+            and FILE_FORMATS[sid % 3] == "mono 48 kHz" else FS)
+
+
+def _serve_jobs(big_clips, n_total: int, file_first: int, seed: int,
+                workers: int):
+    """Phase 6a's requests: (WAV body, song, offset s, channels as the
+    daemon decodes them, kind). Phase 4's 32 clips, 32 new seeded
+    frame-aligned clips across all songs (8 of them dense; 48 kHz songs
+    are sent at 48 kHz, and the daemon resamples them), and 4 stereo
+    requests, in a seeded order. The new clips' songs are synthesized by
+    a process pool."""
+    from shazam_tpu_torch.audio.resample import resample_channels
+    from shazam_tpu_torch.client import encode_wav
+
+    rng = np.random.default_rng(seed + 6)
+    clip_len = int(BIG_CLIP_S * FS)
+    max_frame = (int(30.0 * FS) - clip_len) // HOP
+    jobs = [(encode_wav(c, FS), sid, frame * HOP / FS, [c], "phase 4")
+            for sid, frame, c in big_clips]
+    picks = []
+    for k in range(SERVE_NEW_CLIPS):
+        sid = int(rng.integers(n_total))
+        secs = int(rng.integers(0, max_frame + 1)) * HOP / FS
+        while k < DENSE_CLIPS and _catalog_rate(sid, file_first) != FS:
+            # resampling would stretch the noise's period off the hop
+            sid = int(rng.integers(n_total))
+        picks.append((sid, secs))
+    with mp.get_context("spawn").Pool(workers) as pool:
+        songs = pool.map(functools.partial(_catalog_song, file_first=file_first),
+                         [sid for sid, _ in picks])
+    for k, ((sid, secs), (samples, fs)) in enumerate(zip(picks, songs)):
+        start = round(secs * fs)
+        clip = samples[start: start + int(BIG_CLIP_S * fs)]
+        kind = "new"
+        if k < DENSE_CLIPS:
+            clip, kind = _dense(clip, rng), "dense"
+        chans = [clip] if fs == FS else resample_channels([clip], fs, FS)
+        jobs.append((encode_wav(clip, fs), sid, secs, chans, kind))
+    for sid, frame, c in big_clips[:SERVE_STEREO]:
+        right = (c * 0.7).astype(np.int16)
+        jobs.append((encode_wav(np.stack([c, right]), FS), sid,
+                     frame * HOP / FS, [c, right], "stereo"))
+    return [jobs[j] for j in rng.permutation(len(jobs))]
+
+
+def _overlaps(spans, others) -> int:
+    """How many of ``spans`` overlap in time one of ``others``."""
+    return sum(any(a < d and c < b for c, d in others) for a, b in spans)
+
+
+def _daemon_run(sia, jobs, pipeline: bool) -> dict:
+    """Phase 6a once: an in-process daemon answers ``jobs`` from
+    SERVE_THREADS client threads. Counts the dense clips' retries (the
+    peak_over clips of every prepared batch, each re-run alone by the
+    match stage) and how many of the match thread's retries overlapped a
+    batch being fingerprinted on the batcher thread."""
+    from shazam_tpu_torch.client import SIAClient
+    from shazam_tpu_torch.serve import RecognitionServer
+
+    peak_over, prepares, retries = [0], [], []
+    real_prep, real_solo = sia.prepare_batch, sia.recognize_samples
+
+    def prepare_batch(*a, **kw):
+        t = time.perf_counter()
+        pb = real_prep(*a, **kw)
+        prepares.append((t, time.perf_counter()))
+        peak_over[0] += len(pb.peak_over) if pb is not None else 0
+        return pb
+
+    def recognize_samples(*a, **kw):
+        t = time.perf_counter()
+        out = real_solo(*a, **kw)
+        if threading.current_thread().name == "sia-matcher":
+            retries.append((t, time.perf_counter()))
+        return out
+
+    sia.prepare_batch, sia.recognize_samples = prepare_batch, recognize_samples
+    srv = RecognitionServer(sia, port=0, max_batch=16, max_wait_ms=10,
+                            pipeline=pipeline)
+    srv.start_background()
+    answers, errors, lat = [None] * len(jobs), [], []
+    t0 = time.perf_counter()
+    try:
+        client = SIAClient(f"http://127.0.0.1:{srv.port}")
+
+        def worker(k):
+            for j in range(k, len(jobs), SERVE_THREADS):
+                t = time.perf_counter()
+                try:
+                    answers[j] = client.recognize(wav_bytes=jobs[j][0])
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append((j, repr(e)))
+                lat.append(time.perf_counter() - t)
+
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        stats = client.stats()
+    finally:
+        srv.close()
+        del sia.prepare_batch, sia.recognize_samples
+    mono = sum(len(j[3]) == 1 for j in jobs)
+    rec = {"pipeline": pipeline, "requests": stats["requests"],
+           "errors": stats["errors"], "batches": stats["batches"],
+           "max_batch": stats["max_batch"], "latency": stats["latency"],
+           "client_p50_ms": 1e3 * float(np.median(lat)),
+           "client_max_ms": 1e3 * max(lat), "wall_s": wall,
+           "match_s": stats.get("match_s"), "prepare_s": stats.get("prepare_s"),
+           "dense_retries": peak_over[0],
+           "retries_overlapping_a_batch": _overlaps(retries, prepares)}
+    print(f"daemon (pipeline {'on' if pipeline else 'off'}): {len(jobs)} "
+          f"requests from {SERVE_THREADS} threads in {wall:.3f} s; batches "
+          f"{rec['batches']} for {mono} mono requests, largest "
+          f"{rec['max_batch']}; queue->response p50 "
+          f"{rec['latency'].get('p50_ms')} ms, p99 "
+          f"{rec['latency'].get('p99_ms')} ms; client p50 "
+          f"{rec['client_p50_ms']:.3f} ms; match_s {rec['match_s']}, "
+          f"prepare_s {rec['prepare_s']}; dense retries {peak_over[0]}, of "
+          f"which {rec['retries_overlapping_a_batch']} overlapped a batch "
+          f"being fingerprinted; errors {rec['errors']}", flush=True)
+    if errors or stats["errors"]:
+        raise AssertionError(f"daemon errors: {errors[:3]}, /stats "
+                             f"errors {stats['errors']}")
+    if not (stats["batches"] < mono and stats["max_batch"] > 1):
+        raise AssertionError(f"daemon did not batch: {stats}")
+    if peak_over[0] < 1:
+        raise AssertionError("no dense clip overflowed the batch's peak "
+                             "capacity: the retry path did not run")
+    rec["answers"] = answers
+    return rec
+
+
+def _held_to_solo(sia, chans, solo, exact, j, got) -> bool:
+    """Phase 5's rule: ``got`` equals the solo answer of job ``j``, two
+    lower bounds under different clamps each held to the exact count."""
+    import dataclasses
+
+    want = solo[j]
+    if want["partial"] and got["partial"] and want["matched"] != got["matched"]:
+        if j not in exact:
+            cfg = sia.config
+            sia.config = dataclasses.replace(cfg, decision_escalation=False)
+            try:
+                exact[j] = _answer(sia.recognize_samples(chans))
+            finally:
+                sia.config = cfg
+        return _same_answer(want, got, exact[j])
+    return _same_answer(want, got)
+
+
+def _mutation(sia, big_clips, new_id: int, seed: int, tmp: str) -> dict:
+    """Phase 6b: /ingest two new songs, /delete one, /save, a fresh SIA
+    from the snapshot (fsck, same answers), and a token-gated daemon."""
+    import sqlite3
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.client import SIAClient, SIAServerError
+    from shazam_tpu_torch.serve import RecognitionServer
+    from shazam_tpu_torch.tools.fsck import check_integrity
+
+    rng = np.random.default_rng(seed + 7)
+    ids = [new_id, new_id + 1]
+    clip_len = int(BIG_CLIP_S * FS)
+    clips = {}
+    for i in ids:
+        secs = int(rng.integers(0, (30 * FS - clip_len) // HOP + 1)) * HOP / FS
+        clips[i] = (_song(i)[round(secs * FS):][:clip_len], secs)
+    out = {}
+    srv = RecognitionServer(sia, port=0, max_batch=16, max_wait_ms=10)
+    srv.start_background()
+    try:
+        client = SIAClient(f"http://127.0.0.1:{srv.port}")
+        before = client.stats()
+        t = time.perf_counter()
+        for i in ids:
+            res = client.ingest(f"song{i:05d}", _song(i), FS)
+            if res["ingested"] != 1:
+                raise AssertionError(f"/ingest song {i}: {res}")
+        out["ingest_s"] = time.perf_counter() - t
+        for i in ids:
+            if not _right(client.recognize(clips[i][0], FS), i, clips[i][1]):
+                raise AssertionError(f"ingested song {i} not recognized")
+        grown = client.stats()
+        gone = ids[1]
+        res = client.delete(f"song{gone:05d}")
+        if res["deleted_songs"] != 1 or res["removed_rows"] <= 0:
+            raise AssertionError(f"/delete: {res}")
+        hit = client.recognize(clips[gone][0], FS)
+        if any(r["song_name"] == f"song{gone:05d}" for r in hit["results"]):
+            raise AssertionError("a deleted song is still recognized")
+        shrunk = client.stats()
+        if not (grown["n_songs"] == before["n_songs"] + 2
+                and shrunk["n_songs"] == grown["n_songs"] - 1
+                and shrunk["n_hashes"] < grown["n_hashes"]
+                and shrunk["index_hashes"] < grown["index_hashes"]):
+            raise AssertionError(f"/stats counts: {before}, {grown}, {shrunk}")
+        snap = os.path.join(tmp, "snapshot.npz")
+        t = time.perf_counter()
+        if client.save(snap)["saved"] != snap:
+            raise AssertionError("/save")
+        out["save_s"] = time.perf_counter() - t
+        if client.stats()["errors"]:
+            raise AssertionError("daemon errors during the mutations")
+    finally:
+        srv.close()
+    print(f"mutation: /ingest 2 songs in {out['ingest_s']:.3f} s, both "
+          f"recognized; /delete song {gone}: no longer returned, songs "
+          f"{grown['n_songs']} -> {shrunk['n_songs']}, hashes "
+          f"{grown['n_hashes']} -> {shrunk['n_hashes']}; /save in "
+          f"{out['save_s']:.3f} s", flush=True)
+
+    # the snapshot holds the index; the catalog is the live one, copied
+    cat = os.path.join(tmp, "snapshot.sqlite")
+    dst = sqlite3.connect(cat)
+    sia.catalog.conn.backup(dst)
+    dst.close()
+    t = time.perf_counter()
+    fresh = SIA(device=sia.device, catalog_path=cat)
+    fresh.load_index(snap)
+    fresh._ensure_device_index()
+    report = check_integrity(fresh, deep=True)
+    out["fresh_load_s"] = time.perf_counter() - t
+    if not report["ok"] or report["checks"]["store"] != "DeviceIndex":
+        raise AssertionError(f"fsck of the snapshot: {report}")
+    checked = [(c, sid, frame * HOP / FS) for sid, frame, c in big_clips[:3]]
+    checked.append((clips[ids[0]][0], ids[0], clips[ids[0]][1]))
+    for c, sid, secs in checked:
+        a, b = (_answer(s.recognize_samples([c])) for s in (sia, fresh))
+        if a != b or not _right(fresh.recognize_samples([c]), sid, secs):
+            raise AssertionError(f"snapshot answers differ: {a} {b}")
+    print(f"snapshot: loaded with its catalog in {out['fresh_load_s']:.3f} s "
+          f"(fsck deep ok: {report['checks']}), 4 clips answered alike",
+          flush=True)
+    del fresh
+
+    srv = RecognitionServer(sia, port=0, max_batch=16, max_wait_ms=10,
+                            auth_token="phase6-token")
+    srv.start_background()
+    try:
+        client = SIAClient(f"http://127.0.0.1:{srv.port}")
+        try:
+            client.ingest("song99999", _song(ids[0]), FS)
+            raise AssertionError("/ingest without the token was accepted")
+        except SIAServerError as e:
+            if e.status != 401:
+                raise
+        sid, frame, c = big_clips[0]
+        if not _right(client.recognize(c, FS), sid, frame * HOP / FS):
+            raise AssertionError("token-gated daemon: /recognize wrong")
+    finally:
+        srv.close()
+    print("auth: /ingest without the token refused (401), /recognize "
+          "answered", flush=True)
+    out.update(fsck=report["checks"], deleted=gone)
+    return out
+
+
+def _stream_pieces(n: int):
+    """Frames per channel of each feed: CHUNK, with a few odd sizes."""
+    from shazam_tpu_torch.stream import CHUNK
+
+    odd = (3001, 12345, 777, CHUNK + 1)
+    pieces, k = [], 0
+    while sum(pieces) < n:
+        step = odd[(k // 7) % len(odd)] if k % 7 == 3 else CHUNK
+        pieces.append(min(step, n - sum(pieces)))
+        k += 1
+    return pieces
+
+
+def _streams(sia, file_first: int, n_files: int, seed: int) -> dict:
+    """Phase 6c: per engine, a /stream session (2 channels, 15 s window)
+    fed 20 s of a stereo song, recognized after 16 s and at the end; and
+    the same chunks into an in-process StreamRecognizer, whose windows
+    must equal fingerprint_batch_fused of their samples bit for bit."""
+    import torch
+
+    from shazam_tpu_torch.api import _bucket_len
+    from shazam_tpu_torch.client import SIAClient
+    from shazam_tpu_torch.ops.fingerprint import fingerprint_batch_fused
+    from shazam_tpu_torch.serve import RecognitionServer
+    from shazam_tpu_torch.stream import StreamRecognizer
+
+    rng = np.random.default_rng(seed + 8)
+    stereo_ids = [i for i in range(file_first, file_first + n_files)
+                  if FILE_FORMATS[i % 3] == "stereo"]
+    sid = stereo_ids[int(rng.integers(len(stereo_ids)))]
+    samples, fs, _kind = _file_song(sid)
+    n = int(STREAM_S * FS)
+    start = int(rng.integers(0, (30 * FS - n) // HOP + 1)) * HOP
+    left = samples[start: start + n]
+    chans = [left, (left * 0.7).astype(np.int16)]   # as phase 5 wrote it
+    pieces = _stream_pieces(n)
+
+    def interleaved(a, b):
+        out = np.empty(2 * (b - a), np.int16)
+        out[0::2], out[1::2] = chans[0][a:b], chans[1][a:b]
+        return out
+
+    def right(res, fp):
+        return _right(res, sid, (start + fp.window_sample_range()[0]) / FS)
+
+    out = {"song": sid, "start_s": start / FS}
+    srv = RecognitionServer(sia, port=0, max_batch=16, max_wait_ms=10)
+    srv.start_background()
+    try:
+        client = SIAClient(f"http://127.0.0.1:{srv.port}")
+        for engine in ("host", "device"):
+            rec = StreamRecognizer(sia, channels=2,
+                                   window_seconds=STREAM_WINDOW_S,
+                                   engine=engine)
+            feed_s, rec_lat, checks, after_ready = 0.0, [], 0, None
+            with client.open_stream(channels=2, window_seconds=STREAM_WINDOW_S,
+                                    engine=engine) as session:
+                served = srv.batcher._streams[session.session_id][0]
+                pos, http_hits = 0, []
+                for k, step in enumerate(pieces):
+                    chunk = interleaved(pos, pos + step)
+                    session.feed(chunk)
+                    t = time.perf_counter()
+                    rec.feed(chunk)
+                    feed_s += time.perf_counter() - t
+                    first = pos < STREAM_FIRST_RECOGNIZE_S * FS <= pos + step
+                    pos += step
+                    if first or pos == n:
+                        res = session.recognize()
+                        if not right(res, served._fps[0]):
+                            raise AssertionError(
+                                f"/stream/recognize ({engine}) at {pos / FS:.2f}"
+                                f" s: {res['results'][:1]}")
+                        http_hits.append(pos / FS)
+                    if not rec.ready or pos < STREAM_WINDOW_S * FS:
+                        continue
+                    if after_ready is None:
+                        after_ready = rec.fallbacks
+                    if k % 4 and pos != n:
+                        continue
+                    for c, fp in enumerate(rec._fps):
+                        a, b = fp.window_sample_range()
+                        x = np.zeros((1, _bucket_len(b - a)), np.float32)
+                        x[0, : b - a] = chans[c][a:b]
+                        want = fingerprint_batch_fused(
+                            torch.from_numpy(x).to(sia.device),
+                            torch.tensor([b - a], device=sia.device))
+                        got = fp.fingerprints()
+                        if not all(torch.equal(g, w[0])
+                                   for g, w in zip(got, want)):
+                            raise AssertionError(
+                                f"{engine} stream window [{a}, {b}) of "
+                                f"channel {c} differs from the full pass")
+                    checks += 1
+                    t = time.perf_counter()
+                    res = rec.recognize()
+                    rec_lat.append(time.perf_counter() - t)
+                    if not right(res, rec._fps[0]):
+                        raise AssertionError(f"{engine} stream recognize "
+                                             f"wrong at {pos / FS:.2f} s")
+                served_fallbacks = served.fallbacks
+                served_frames = [(f.frames_computed, f.n_frames)
+                                 for f in served._fps]
+            fed_frames = (n - 4096) // HOP + 1
+            frames = [(f.frames_computed, f.n_frames) for f in rec._fps]
+            if engine == "device":
+                fed_frames -= fed_frames % 16   # whole quanta only
+            if any(fc != fed_frames or nf != fed_frames
+                   for fc, nf in frames + served_frames):
+                raise AssertionError(f"{engine}: frames computed "
+                                     f"{frames} {served_frames}, fed "
+                                     f"{fed_frames}")
+            if rec.fallbacks != after_ready or served_fallbacks:
+                raise AssertionError(
+                    f"{engine}: fallbacks after ready {rec.fallbacks - after_ready}"
+                    f", served session {served_fallbacks}")
+            quanta = rec._fps[0].frames_computed / 16
+            out[engine] = {
+                "feeds": len(pieces), "feed_ms_per_quantum":
+                    1e3 * feed_s / quanta,
+                "recognize_p50_ms": 1e3 * float(np.median(rec_lat)),
+                "recognize_max_ms": 1e3 * max(rec_lat),
+                "windows_checked": checks, "frames": fed_frames,
+                "fallbacks_after_ready": rec.fallbacks - after_ready,
+                "http_recognize_at_s": http_hits}
+            print(f"stream {engine}: {len(pieces)} feeds of 2 channels "
+                  f"({STREAM_S} s, song {sid}), feed "
+                  f"{out[engine]['feed_ms_per_quantum']:.3f} ms per 16 "
+                  f"frames (both channels), recognize p50 "
+                  f"{out[engine]['recognize_p50_ms']:.3f} ms over "
+                  f"{len(rec_lat)} calls; {checks} windows bit-equal to "
+                  f"fingerprint_batch_fused; /stream/recognize right at "
+                  f"{http_hits} s; fallbacks after ready 0; frames computed "
+                  f"= frames fed = {fed_frames}", flush=True)
+    finally:
+        srv.close()
+    return out
+
+
+def serve_and_stream(sia, big_clips, n_total: int, file_first: int,
+                     n_files: int, seed: int, workers: int) -> dict:
+    """Phase 6 on phase 5's SIA: (a) the daemon under 8 client threads,
+    pipeline on and off, every answer right and equal to
+    recognize_samples on the clip alone; (b) online mutation, a snapshot
+    and a token-gated daemon; (c) /stream sessions and in-process streams
+    on both engines. Every kernel launch of (a)-(c) passes a
+    ``ShapeAudit``, which then holds the first launch at each shape
+    against its twin. The CLI is not driven here: as subprocesses on the
+    card it took phase 6 past 100 s; ``tests/test_torch_cli.py`` holds
+    it, its daemon subprocess and SIGTERM included."""
+    import tempfile
+
+    out = {}
+    secs = out["seconds"] = {}
+    with ShapeAudit(sia.config) as audit:
+        t = time.perf_counter()
+        jobs = _serve_jobs(big_clips, n_total, file_first, seed, workers)
+        solo = [_answer(sia.recognize_samples(j[3])) for j in jobs]
+        exact = {}
+        for pipeline in (True, False):
+            run = _daemon_run(sia, jobs, pipeline)
+            bad = [(j, jobs[j][4], solo[j], _answer(r))
+                   for j, r in enumerate(run.pop("answers"))
+                   if not (_right(r, jobs[j][1], jobs[j][2])
+                           and _held_to_solo(sia, jobs[j][3], solo, exact, j,
+                                             _answer(r)))]
+            if bad:
+                raise AssertionError(f"daemon (pipeline {pipeline}) answers: "
+                                     f"{bad[:3]}")
+            out["daemon_pipeline" if pipeline else "daemon_single_thread"] = run
+        print(f"daemon: all {len(jobs)} answers right and equal to "
+              f"recognize_samples alone, both runs (exact counts taken for "
+              f"{len(exact)} clips)", flush=True)
+        secs["daemon"] = time.perf_counter() - t
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            out["mutation"] = _mutation(sia, big_clips, n_total, seed, tmp)
+        secs["mutation"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["streams"] = _streams(sia, file_first, n_files, seed)
+        secs["streams"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["twin_audit"] = audit.check()
+    secs["twin_audit"] = time.perf_counter() - t
+    print("phase 6's first launch at each shape equal to its plain twin "
+          "(K1 in dB): " + "; ".join(
+              f"{name} at {len(v)} shapes {[k for k, _ in v]}, max err "
+              f"{max((e for _, e in v), default=0)}"
+              for name, v in out["twin_audit"].items()), flush=True)
+    print(f"phase 6 seconds: { {k: round(v, 3) for k, v in secs.items()} }",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--songs", type=int, default=2035)
@@ -1107,6 +1842,9 @@ def main(argv=None) -> int:
         args.seed, workers))
     files, launches_files = launched("files and batches", lambda: files_and_batches(
         sia, args.big_songs, args.file_songs, big_clips, args.seed, workers))
+    served, launches_serve = launched("serve and stream", lambda: serve_and_stream(
+        sia, big_clips, args.big_songs + args.file_songs, args.big_songs,
+        args.file_songs, args.seed, workers))
 
     report = []
     for name, source, replaces in KERNELS:
@@ -1117,6 +1855,7 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches[name],
             "launches_big_catalog": launches_big[name],
             "launches_files_batches": launches_files[name],
+            "launches_serve_stream": launches_serve[name],
             "max_abs_err": max(r["err"] for r in m.values()),
             **{k: m["ingest"][k] for k in (
                 "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
@@ -1125,7 +1864,8 @@ def main(argv=None) -> int:
         })
     print(f"whole run {time.perf_counter() - t0:.3f} s", flush=True)
     print(json.dumps({"kernels": report, "end_to_end": e2e,
-                      "big_catalog": big, "files_and_batches": files}),
+                      "big_catalog": big, "files_and_batches": files,
+                      "serve_and_stream": served}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Sequence
@@ -123,7 +124,8 @@ class Kernel:
     """One C entry point of the kernel library, with a launch counter.
 
     ``launches`` grows by one for each successful launch and nowhere
-    else; callers may reset it to 0 before a run they want to attribute.
+    else (under a lock: threads launch concurrently); callers may reset it
+    to 0 before a run they want to attribute.
     ``loader`` returns the library that holds the symbol: the package's
     own by default, another build (an earlier kernel source) for a
     side-by-side timing.
@@ -136,6 +138,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.loader = loader
         self.launches = 0
+        self._count_lock = threading.Lock()
 
     @functools.cached_property
     def _fn(self):
@@ -157,4 +160,5 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed with error {rc} "
                 f"({library().shz_error_string(rc).decode()})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

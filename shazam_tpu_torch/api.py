@@ -35,8 +35,10 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   results equal ``recognize_samples`` on each clip alone.
 - ``save_index``/``load_index``: the JAX package's flat ``.npz`` format.
 
-Not ported yet: the device-resident and spanned stores, the unique-view
-search, serve, streaming, apriori.
+The serving daemon (``serve.py``) and streaming recognition
+(``stream.py``, ``stream_device.py``) sit on top of this class. Not ported
+yet: the device-resident and spanned stores, the unique-view search,
+apriori.
 
 Shapes are bucketed (padded to the next 2^18-sample multiple), as in the
 JAX package, so both packages see the same frame counts.
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -181,6 +184,9 @@ class SIA:
         # undecided] over the current window, and the accumulated boost
         self._decide_stats = [0, 0]
         self._decide_boost = 0
+        # the serving daemon's batcher and match threads may both reach
+        # the first query after a change: one of them uploads the index
+        self._upload_lock = threading.Lock()
 
     @property
     def index(self) -> FingerprintIndex:
@@ -190,6 +196,11 @@ class SIA:
     def index(self, ix: FingerprintIndex) -> None:
         self._index = ix
         self._device_index: Optional[DeviceIndex] = None
+
+    def _live_n_hashes(self) -> int:
+        """Rows of the live index (the host index: the device-resident and
+        spanned stores are not ported)."""
+        return self._index.n_hashes
 
     # ------------------------------------------------------------------ #
     # ingest
@@ -504,12 +515,13 @@ class SIA:
     # recognition
     # ------------------------------------------------------------------ #
     def _ensure_device_index(self) -> DeviceIndex:
-        if self._device_index is None:
-            self._device_index = self.index.device_arrays(self.device)
-            # histogram window base: covers the longest song, rounded up
-            # so catalog growth keeps the same window
-            self._max_off = ((self.index.max_offset // 4096) + 1) * 4096
-        return self._device_index
+        with self._upload_lock:
+            if self._device_index is None:
+                self._device_index = self.index.device_arrays(self.device)
+                # histogram window base: covers the longest song, rounded
+                # up so catalog growth keeps the same window
+                self._max_off = ((self.index.max_offset // 4096) + 1) * 4096
+            return self._device_index
 
     def _fp_kwargs(self, peak_capacity: Optional[int] = None) -> Dict:
         c = self.config

@@ -6,6 +6,6 @@ nothing of the JAX package.
 """
 
 from .io import find_files, read, write_wav
-from .synth import synth_song
+from .synth import synth_corpus, synth_song
 
-__all__ = ["synth_song", "read", "write_wav", "find_files"]
+__all__ = ["synth_song", "synth_corpus", "read", "write_wav", "find_files"]

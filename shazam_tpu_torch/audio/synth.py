@@ -1,7 +1,8 @@
 """Deterministic synthetic songs (numpy), sample for sample the JAX package's.
 
-``synth_song`` is ``shazam_tpu.audio.synth.synth_song`` (a test holds the
-two bit-equal). It is defined here because ``chip_smoke.py``, which
+``synth_song`` is ``shazam_tpu.audio.synth.synth_song`` and
+``synth_corpus`` its ``synth_corpus`` of the default style (tests hold
+them equal). It is defined here because ``chip_smoke.py``, which
 synthesizes its catalog with it, imports nothing of the JAX package:
 sums of held harmonic tones with onset
 envelopes, percussive clicks and a noise floor, fully determined by
@@ -9,6 +10,9 @@ envelopes, percussive clicks and a noise floor, fully determined by
 """
 
 from __future__ import annotations
+
+import os
+from typing import List, Tuple
 
 import numpy as np
 
@@ -60,3 +64,23 @@ def synth_song(song_id: int, duration_s: float = 30.0, fs: int = 44100,
     if peak > 0:
         audio = audio / peak * 0.8
     return (audio * 32767.0).astype(np.int16)
+
+
+def synth_corpus(directory: str, n_songs: int, duration_s: float = 30.0,
+                 fs: int = 44100, seed: int = 1234) -> List[Tuple[str, int]]:
+    """Write a corpus of WAV songs named ``track{i:06d}.wav``.
+
+    Returns [(path, song_id)]. Skips files that already exist (same seed
+    always regenerates identical bytes, so stale files are safe).
+    """
+    from .io import write_wav
+
+    os.makedirs(directory, exist_ok=True)
+    out = []
+    for i in range(n_songs):
+        path = os.path.join(directory, f"track{i:06d}.wav")
+        if not os.path.exists(path):
+            write_wav(path, synth_song(i, duration_s=duration_s, fs=fs,
+                                       seed=seed), fs)
+        out.append((path, i))
+    return out

@@ -24,12 +24,41 @@ from __future__ import annotations
 import sqlite3
 from typing import Dict, List, Optional
 
+_SERIALIZED: Optional[bool] = None
+
+
+def _sqlite_serialized() -> bool:
+    """True when the linked SQLite was built THREADSAFE=1 (serialized)."""
+    global _SERIALIZED
+    if _SERIALIZED is None:
+        try:
+            probe = sqlite3.connect(":memory:")
+            row = probe.execute(
+                "SELECT compile_options FROM pragma_compile_options"
+                " WHERE compile_options LIKE 'THREADSAFE=%'"
+            ).fetchone()
+            probe.close()
+            _SERIALIZED = bool(row) and row[0] == "THREADSAFE=1"
+        except Exception:
+            _SERIALIZED = False  # unknown build: keep the loud check
+    return _SERIALIZED
+
+
 class SongCatalog:
     """sqlite3-backed songs/metadata catalog with reference semantics."""
 
     def __init__(self, path: str = ":memory:"):
         self.path = path
-        self.conn = sqlite3.connect(path)
+        # A serialized SQLite build (THREADSAFE=1, the default) locks
+        # around every connection use, so the connection may cross
+        # threads (the HTTP serving daemon answers on a batcher thread
+        # while /stats reads from handler threads).  Probe the actual
+        # compile option: sqlite3.threadsafety is hardcoded to 1 on
+        # Python <= 3.10 regardless of the library build, so gating on
+        # it would break serving there.  Non-serialized builds keep the
+        # loud per-thread check instead of racing.
+        self.conn = sqlite3.connect(
+            path, check_same_thread=not _sqlite_serialized())
         self.conn.execute(
             """CREATE TABLE IF NOT EXISTS songs (
                    song_id INTEGER PRIMARY KEY AUTOINCREMENT,
@@ -66,6 +95,15 @@ class SongCatalog:
         self.conn.commit()
         return int(cur.lastrowid)
 
+    def update_song_hashes(self, song_id: int, total_hashes: int) -> None:
+        """Set a song's hash count after the fact (device-side ingest
+        learns the deduped count only once the run is built in HBM)."""
+        self.conn.execute(
+            "UPDATE songs SET total_hashes = ? WHERE song_id = ?",
+            (total_hashes, song_id),
+        )
+        self.conn.commit()
+
     def set_song_fingerprinted(self, song_id: int) -> None:
         self.conn.execute(
             "UPDATE songs SET fingerprinted = 1, date_modified = CURRENT_TIMESTAMP"
@@ -93,6 +131,10 @@ class SongCatalog:
             return None
         return {"song_name": row[0], "file_sha1": row[1], "total_hashes": row[2]}
 
+    def song_hashes_by_id(self) -> Dict[int, int]:
+        cur = self.conn.execute("SELECT song_id, total_hashes FROM songs")
+        return {int(r[0]): int(r[1]) for r in cur.fetchall()}
+
     def fingerprinted_file_hashes(self) -> set:
         """SHA-1 set for ingest resume (load_fingerprinted_audio_hashes)."""
         cur = self.conn.execute(
@@ -110,7 +152,8 @@ class SongCatalog:
         )
         self.conn.commit()
 
-    def insert_metadata(self, track_id: int, **fields) -> None:
+    def insert_metadata(self, track_id: int, commit: bool = True,
+                        **fields) -> None:
         allowed = [
             "album_title", "album_url", "artist_name", "artist_url",
             "artist_website", "tags", "track_genres", "track_title", "track_url",
@@ -122,7 +165,46 @@ class SongCatalog:
             f" VALUES ({', '.join('?' * len(cols))})",
             vals,
         )
+        if commit:
+            self.conn.commit()
+
+    def import_metadata_csv(self, path: str) -> int:
+        """Bulk-load an FMA-style metadata CSV (reference
+        ``metadatatable.sql`` LOAD DATA INFILE). The CSV must have a
+        header row naming at least ``track_id``; other recognized columns
+        are the metadata table fields. Returns rows imported.
+
+        ONE transaction for the whole file: a commit (journal fsync) per
+        row turns the ~106K-track FMA import into minutes, and a crash
+        mid-import would leave a partial table instead of an atomic one.
+        """
+        import csv as _csv
+
+        allowed = {
+            "album_title", "album_url", "artist_name", "artist_url",
+            "artist_website", "tags", "track_genres", "track_title",
+            "track_url",
+        }
+        n = 0
+        try:
+            with open(path, newline="", encoding="utf-8",
+                      errors="replace") as fh:
+                for row in _csv.DictReader(fh):
+                    if "track_id" not in row:
+                        continue
+                    try:
+                        tid = int(row["track_id"])
+                    except (TypeError, ValueError):
+                        continue
+                    fields = {k: v for k, v in row.items()
+                              if k in allowed and v not in (None, "")}
+                    self.insert_metadata(tid, commit=False, **fields)
+                    n += 1
+        except BaseException:
+            self.conn.rollback()
+            raise
         self.conn.commit()
+        return n
 
     def get_metadata(self, track_id: int) -> Optional[Dict]:
         """Same projection the reference returns (``mysql_database.py:247-255``)."""
@@ -142,6 +224,14 @@ class SongCatalog:
             "track_genres": row[3],
             "track_url": row[5],
         }
+
+    # ---- stats (database_plot.py / *.sql equivalents) ----
+    def song_hash_stats(self) -> List[Dict]:
+        cur = self.conn.execute(
+            "SELECT song_name, total_hashes FROM songs WHERE fingerprinted = 1"
+            " ORDER BY total_hashes DESC"
+        )
+        return [{"song_name": r[0], "total_hashes": r[1]} for r in cur.fetchall()]
 
     def counts(self) -> Dict[str, int]:
         n_songs = self.conn.execute(

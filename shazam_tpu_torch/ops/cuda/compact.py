@@ -14,11 +14,18 @@ each call tags its status words with an epoch of its own and passes the
 ticket count the earlier calls left (:class:`LookBackScratch`). Both
 numbers are fixed on the host at launch, so a launch replayed from a
 CUDA graph would reuse them: :func:`compact` refuses to be captured.
+
+Threads share the scratch of their stream (every thread of a process
+starts on the device's default stream), so taking the ticket base and
+epoch, the launch and advancing the base are one critical section under
+the scratch's lock (:meth:`LookBackScratch.launch`): two launches never
+get the same ticket base or epoch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -57,6 +64,17 @@ class LookBackScratch:
         self.words = torch.zeros(0, dtype=torch.int64, device=self.device)
         self.base = 0
         self.epoch = 0
+        self.lock = threading.Lock()
+
+    def launch(self, n_tiles: int, n_blocks: int, fn) -> None:
+        """:meth:`take`, ``fn(words, base, epoch)`` (the launch of
+        ``n_blocks`` blocks over ``n_tiles`` tiles) and :meth:`commit`,
+        all under the lock, so that launches from several threads get
+        distinct ticket bases and epochs."""
+        with self.lock:
+            words, base, epoch = self.take(n_tiles)
+            fn(words, base, epoch)
+            self.commit(n_blocks)
 
     def take(self, n_tiles: int):
         """(words, ticket base, epoch) for a launch of ``n_tiles`` tiles;
@@ -77,13 +95,15 @@ class LookBackScratch:
 
 
 _SCRATCH: dict = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 def _scratch(device: torch.device, stream: int) -> LookBackScratch:
     key = (device.index, stream)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = LookBackScratch(device)
-    return _SCRATCH[key]
+    with _SCRATCH_LOCK:
+        if key not in _SCRATCH:
+            _SCRATCH[key] = LookBackScratch(device)
+        return _SCRATCH[key]
 
 
 def compact(bits: torch.Tensor, capacity: int):
@@ -116,10 +136,11 @@ def compact(bits: torch.Tensor, capacity: int):
     if bsz == 0:
         return times, freqs, n_peaks
     stream = raw_stream(dev.index)
-    scratch = _scratch(dev, stream)
-    words, base, epoch = scratch.take(tiles)
-    KERNEL(bits.data_ptr(), bsz, t, capacity, times.data_ptr(),
-           freqs.data_ptr(), n_peaks.data_ptr(), words.data_ptr(), base,
-           epoch, stream=stream)
-    scratch.commit(blocks)
+
+    def launch(words, base, epoch):
+        KERNEL(bits.data_ptr(), bsz, t, capacity, times.data_ptr(),
+               freqs.data_ptr(), n_peaks.data_ptr(), words.data_ptr(), base,
+               epoch, stream=stream)
+
+    _scratch(dev, stream).launch(tiles, blocks, launch)
     return times, freqs, n_peaks

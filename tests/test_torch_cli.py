@@ -1,0 +1,172 @@
+"""Port parity for the CLI (shazam_tpu_torch/cli.py) on the CPU.
+
+Mirrors ``tests/test_cli.py`` less ``bench``: drives ``cli.main(argv)``
+in-process over one tmp ``--db`` through the reference's workflows
+(synth corpus -> ingest -> stats -> recognize -> fsck -> sanity ->
+metadata import), every run with ``--device cpu``. Also: ``synth`` writes
+the JAX package's files, flags the port cannot honor are refused, and
+``serve`` runs as a subprocess that answers and stops on SIGTERM.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from shazam_tpu_torch import cli
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Parallel test workers: one torch thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run(capsys, *argv):
+    cli.main(["--device", "cpu", *argv])
+    out = capsys.readouterr().out
+    # first JSON document on stdout (recognize may append metadata lines)
+    dec = json.JSONDecoder()
+    obj, _ = dec.raw_decode(out[out.index("{"):])
+    return obj
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cliws")
+    return {"db": str(root / "db"), "songs": str(root / "songs"),
+            "root": root}
+
+
+def test_synth_and_ingest(workspace, capsys):
+    out = _run(capsys, "synth", workspace["songs"], "-n", "3",
+               "--seconds", "8")
+    assert out["generated"] == 3
+    out = _run(capsys, "--db", workspace["db"], "ingest", workspace["songs"])
+    assert out["ingested"] == 3 and not out["overflowed"]
+    assert os.path.exists(workspace["db"] + ".npz")
+    # resume dedup: a second ingest skips everything
+    out = _run(capsys, "--db", workspace["db"], "ingest", workspace["songs"])
+    assert out["skipped"] == 3 and out["ingested"] == 0
+
+
+def test_stats_and_fsck(workspace, capsys):
+    csv = str(workspace["root"] / "hashes.csv")
+    out = _run(capsys, "--db", workspace["db"], "stats", "--out", csv)
+    assert out["n_songs"] == 3 and out["index_hashes"] > 1000
+    assert os.path.exists(csv)
+    out = _run(capsys, "--db", workspace["db"], "fsck")
+    assert out["ok"] and not out["errors"]
+
+
+def test_recognize_file(workspace, capsys):
+    track = sorted(os.listdir(workspace["songs"]))[1]
+    out = _run(capsys, "--db", workspace["db"], "recognize",
+               os.path.join(workspace["songs"], track), "--limit", "5")
+    assert out["results"][0]["song_name"] == os.path.splitext(track)[0]
+    assert out["results"][0]["input_confidence"] > 0.5
+
+
+def test_sanity(workspace, capsys, tmp_path, monkeypatch):
+    out = _run(capsys, "--db", workspace["db"], "sanity", workspace["songs"])
+    assert out["checked"] == 3 and not out.get("deleted")
+    monkeypatch.chdir(tmp_path)         # the failures' log lands in the cwd
+    out = _run(capsys, "sanity", workspace["songs"], "--seconds", "9")
+    assert out["bad"] == 3 and (tmp_path / "songs_deleted.csv").exists()
+
+
+def test_metadata_import(workspace, capsys):
+    csv = workspace["root"] / "meta.csv"
+    csv.write_text(  # FMA-style schema (reference metadatatable.sql)
+        "track_id,track_title,artist_name\n1,Track Zero,Synth\n")
+    out = _run(capsys, "--db", workspace["db"], "metadata", str(csv))
+    assert out["imported"] == 1
+
+
+def test_recognize_without_index_exits(tmp_path, capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["--device", "cpu", "--db", str(tmp_path / "nodb"),
+                  "recognize", "x.wav"])
+
+
+def test_synth_writes_the_jax_corpus(tmp_path, capsys):
+    from shazam_tpu.audio.synth import synth_corpus
+
+    out = _run(capsys, "synth", str(tmp_path / "port"), "-n", "2",
+               "--seconds", "2", "--seed", "9")
+    assert out["generated"] == 2
+    synth_corpus(str(tmp_path / "jax"), 2, duration_s=2.0, seed=9)
+    for name in ("track000000.wav", "track000001.wav"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes()
+
+
+@pytest.mark.parametrize("argv", [
+    ["bench", "x"], ["plot", "x.wav"], ["recognize", "x.wav", "--early-exit"],
+    ["ingest", "x", "--device-resident"], ["serve", "--span-rows", "8"],
+    ["serve", "--consolidate"],
+])
+def test_flags_the_port_cannot_honor_are_refused(argv, capsys):
+    with pytest.raises(SystemExit) as ei:
+        cli.build_parser().parse_args(argv)
+    assert ei.value.code == 2
+
+
+def test_config_file(workspace, tmp_path, capsys):
+    """--config takes the port's fields; a field it does not have is
+    refused instead of silently ignored."""
+    good = tmp_path / "good.json"
+    good.write_text(json.dumps({"topn": 1}))
+    track = sorted(os.listdir(workspace["songs"]))[2]
+    out = _run(capsys, "--config", str(good), "--db", workspace["db"],
+               "recognize", os.path.join(workspace["songs"], track),
+               "--limit", "4", "--topn", "1")
+    assert len(out["results"]) == 1
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps({"hash_capacity": 4}))
+    with pytest.raises(SystemExit, match="hash_capacity"):
+        cli.load_config(str(bad))
+
+
+def test_default_device_is_the_card():
+    args = cli.build_parser().parse_args(["stats"])
+    assert args.device == "cuda"
+
+
+def test_serve_subprocess_answers_and_stops_on_sigterm(workspace):
+    """`serve --port 0 --warmup 0` in its own process: it prints where it
+    listens, answers a client, and SIGTERM stops it gracefully."""
+    from shazam_tpu_torch.client import SIAClient
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shazam_tpu_torch.cli", "--device", "cpu",
+         "--db", workspace["db"], "serve", "--port", "0", "--warmup", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    try:
+        line = proc.stdout.readline()
+        url = json.loads(line)["serving"]
+        track = sorted(os.listdir(workspace["songs"]))[0]
+        out = SIAClient(url).recognize(
+            path=os.path.join(workspace["songs"], track))
+        assert out["results"][0]["song_name"] == os.path.splitext(track)[0]
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, stderr
+    last = json.loads(stdout.strip().splitlines()[-1])
+    assert last["stopped"] is True and last["requests"] == 1
+    assert last["errors"] == 0

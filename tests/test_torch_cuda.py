@@ -418,3 +418,110 @@ def test_batched_dispatch_launches_do_not_grow(cuda, rank):
         run(bq)()
     counts = {bq: host_launches(run(bq))[0] for bq in (2, 8, 32)}
     assert counts[2] == counts[8] == counts[32], counts
+
+
+def test_compact_from_many_threads_is_exact(cuda):
+    """8 threads x 50 K3 calls at once on different masks, all on the
+    default stream (sharing one look-back scratch): every result equals
+    the twin bit for bit."""
+    import threading
+
+    from shazam_tpu_torch.ops.cuda import compact
+    from shazam_tpu_torch.ops.peaks import compact_plain
+
+    rng = np.random.default_rng(21)
+    cases = []
+    for k in range(8):
+        shape = (1 + k % 3, 16 * (k + 1) + k)
+        bits = _bits(shape, _random_peaks(rng, *shape, per_frame=3.0 + k))
+        bits = bits.to(cuda)
+        cap = 64 + 97 * k
+        cases.append((bits, cap, compact_plain(bits, cap)))
+    torch.cuda.synchronize()
+    bad = []
+
+    def worker(k):
+        for i in range(50):
+            bits, cap, want = cases[(k + i) % len(cases)]
+            got = compact.compact(bits, cap)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                bad.append((k, i))
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad
+
+
+@pytest.mark.parametrize("engine", ["host", "device"])
+def test_stream_engines_bit_equal_on_cuda(cuda, engine):
+    """Both stream engines on the card, fed a 20 s song in CHUNKs: each
+    15 s window's Fingerprints equal fingerprint_batch_fused of the
+    window's samples on the card, every field."""
+    from shazam_tpu_torch.api import _bucket_len
+    from shazam_tpu_torch.config import FingerprintConfig
+    from shazam_tpu_torch.ops.fingerprint import fingerprint_batch_fused
+    from shazam_tpu_torch.stream import CHUNK, IncrementalFingerprinter
+    from shazam_tpu_torch.stream_device import DeviceIncrementalFingerprinter
+
+    cls = (IncrementalFingerprinter if engine == "host"
+           else DeviceIncrementalFingerprinter)
+    cfg = FingerprintConfig()
+    inc = cls(cfg, 15.0, device=cuda)
+    song = synth_song(6, 20.0, seed=3).astype(np.float32)
+    fed = checks = 0
+    while fed + CHUNK <= len(song):
+        inc.feed(song[fed: fed + CHUNK])
+        fed += CHUNK
+        if not getattr(inc, "ready", True) or (fed // CHUNK) % 5:
+            continue
+        a, b = inc.window_sample_range()
+        x = np.zeros((1, _bucket_len(b - a)), np.float32)
+        x[0, : b - a] = song[a:b]
+        want = fingerprint_batch_fused(
+            torch.from_numpy(x).to(cuda),
+            torch.tensor([b - a], device=cuda))
+        got = inc.fingerprints()
+        for name, g, w in zip(got._fields, got, want):
+            assert torch.equal(g, w[0]), (name, a, b)
+        checks += 1
+    assert checks >= 3
+
+
+def test_daemon_on_cuda_answers_concurrent_requests(cuda):
+    """A daemon over SIA(device="cuda") answers 16 concurrent clients
+    (batched, pipelined) with no error and the right songs."""
+    import threading
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.client import SIAClient
+    from shazam_tpu_torch.serve import RecognitionServer
+
+    songs = [(f"s{i}", synth_song(i, 10.0, seed=8)) for i in range(8)]
+    sia = SIA(device="cuda")
+    sia.ingest_arrays(songs)
+    srv = RecognitionServer(sia, port=0, max_batch=8, max_wait_ms=20.0)
+    srv.start_background()
+    try:
+        client = SIAClient(f"http://127.0.0.1:{srv.port}")
+        got = {}
+
+        def hit(k):
+            clip = songs[k % 8][1][(7 + k) * 2048:][: 5 * 44100]
+            got[k] = client.recognize(clip, fs=44100)
+
+        threads = [threading.Thread(target=hit, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        stats = client.stats()
+    finally:
+        srv.close()
+    assert len(got) == 16
+    for k, out in got.items():
+        assert out["results"][0]["song_name"] == f"s{k % 8}"
+    assert stats["errors"] == 0 and stats["requests"] == 16
+    assert stats["batches"] < 16

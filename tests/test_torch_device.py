@@ -24,10 +24,14 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import shazam_tpu_torch.audio.io, shazam_tpu_torch.audio.mp3\n"
         "import shazam_tpu_torch.audio.resample, shazam_tpu_torch.match.batched\n"
         "import shazam_tpu_torch.index.store, shazam_tpu_torch.profiling\n"
+        "import shazam_tpu_torch.stream, shazam_tpu_torch.stream_device\n"
+        "import shazam_tpu_torch.serve, shazam_tpu_torch.client\n"
+        "import shazam_tpu_torch.cli, shazam_tpu_torch.tools.fsck\n"
+        "import shazam_tpu_torch.tools.stats, shazam_tpu_torch.tools.sanity\n"
         "from shazam_tpu_torch.api import SIA\n"
         "for name in ('ingest_files', 'ingest_directory', 'ingest_channels',\n"
         "             'recognize_file', 'recognize_batch', 'prepare_batch',\n"
-        "             'match_prepared_batch'):\n"
+        "             'match_prepared_batch', '_live_n_hashes'):\n"
         "    assert callable(getattr(SIA, name)), name\n"
         "shazam_tpu_torch.audio.resample.resample_channel(\n"
         "    __import__('numpy').zeros(480, 'int16'), 48000, 44100)\n"
@@ -70,7 +74,30 @@ def _fingerprint(**kw):
     return fingerprint(np.zeros(8192, np.float32), **kw)
 
 
-@pytest.mark.parametrize("entry", [_sia, _fingerprint])
+def _stream_engine(cls_name):
+    def make():
+        from shazam_tpu_torch import stream, stream_device
+        from shazam_tpu_torch.config import FingerprintConfig
+
+        mod = stream if cls_name == "IncrementalFingerprinter" else stream_device
+        return getattr(mod, cls_name)(FingerprintConfig(), 5.0)
+
+    return make
+
+
+def _cli_stats():
+    import tempfile
+
+    from shazam_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli.main(["--db", os.path.join(tmp, "db"), "stats", "--out",
+                  os.path.join(tmp, "s.csv")])
+
+
+@pytest.mark.parametrize("entry", [
+    _sia, _fingerprint, _stream_engine("IncrementalFingerprinter"),
+    _stream_engine("DeviceIncrementalFingerprinter"), _cli_stats])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """No card: the default device raises instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,3 +139,59 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_shape_audit_holds_first_launches_to_their_twins(monkeypatch):
+    """chip_smoke's ShapeAudit reads each launch's arrays from the C
+    arguments the wrappers pass, copies the first launch at each shape and
+    holds it against the plain twin; a copy that differs fails the check.
+    CPU tensors keyed by their pointers stand in for the card's memory."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    from shazam_tpu_torch.config import FingerprintConfig
+    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
+    from shazam_tpu_torch.ops.peaks import (compact_plain, peak_mask_plain,
+                                            power_threshold)
+    from shazam_tpu_torch.ops.spectrogram import (psd_scales,
+                                                  spectrogram_power_plain)
+
+    memory = {}
+
+    def ptr(t):
+        memory[t.data_ptr()] = t
+        return t.data_ptr()
+
+    monkeypatch.setattr(chip_smoke, "_card_view",
+                        lambda p, shape, typestr: memory[p].view(shape))
+    cfg = FingerprintConfig()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(
+        rng.normal(0, 3000, (2, 4096 + 9 * 2048)).astype(np.float32))
+    nvf = torch.tensor([10, 4], dtype=torch.int32)
+    power = spectrogram_power_plain(x, nvf)
+    bits = peak_mask_plain(power, cfg.amp_min)
+    times, freqs, n_peaks = compact_plain(bits, 64)
+    edge, mid = psd_scales(4096, cfg.sample_rate)
+    launches = (
+        (spectrogram.KERNEL, "spectrogram_power",
+         (ptr(x), x.shape[1], ptr(nvf), 2, 10, 2048, 0, 0, edge, mid,
+          ptr(power))),
+        (peaks.KERNEL, "peak_mask",
+         (ptr(power), 2, 10, power_threshold(cfg.amp_min), ptr(bits))),
+        (compact.KERNEL, "compact",
+         (ptr(bits), 2, 10, 64, ptr(times), ptr(freqs), ptr(n_peaks), 0, 0,
+          0)),
+    )
+    audit = chip_smoke.ShapeAudit(cfg)
+    for kernel, name, args in launches * 2:   # a shape is copied once
+        stub = type("Stub", (), {"argtypes": kernel.argtypes,
+                                 "__call__": lambda self, *a, stream: None})
+        audit._launch(name, stub(), *args)
+    assert audit.check() == {"spectrogram_power": [[[2, x.shape[1]], 0.0]],
+                             "peak_mask": [[[2, 10], 0]],
+                             "compact": [[[2, 10, 64], 0]]}
+    audit.first["compact", (2, 10, 64)][1][0][0, 0] += 1
+    with pytest.raises(AssertionError, match="compact at"):
+        audit.check()
+    with pytest.raises(AssertionError, match="arguments"):
+        audit._launch("compact", stub(), *launches[2][2][:-1])

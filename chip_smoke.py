@@ -10,9 +10,11 @@ Phases (each raises on failure; any failure exits non-zero):
 1. build: compile the hand-written kernels ``shazam_tpu_torch/csrc/*.cu``
    with nvcc (sm_90a) and load them;
 2. kernels: run K1 (spectrogram), K2 (peak mask) and K3 (compaction) on
-   the card at the shapes phases 3-6 give them (``_kernel_inputs``,
+   the card at the shapes phases 3-7 give them (``_kernel_inputs``,
    ``check_stream_kernels``) --
-   ingest (8, 1,572,864) samples, 767 frames, peak capacity 16384; clip
+   ingest (8, 1,572,864) samples, 767 frames, peak capacity 16384; phase
+   7's device batch (16, 1,572,864) at 16384 and its retry batch, a dense
+   row cycle-padded to (16, 1,572,864), at 32768; clip
    (1, 262,144), 127 frames, capacity 8192; phase 4's 15 s clip (1,
    786,432), 383 frames, capacity 8192; batches of 15 s clips, (2, 4 or
    8, 786,432) with an empty row or three and (32, 786,432), capacity
@@ -46,7 +48,7 @@ Phases (each raises on failure; any failure exits non-zero):
    and ``recognize_clip`` answers seeded 5 s clips cut at frame-aligned
    offsets: every top-1 must be the source song with |offset error| <
    0.1 s, and each kernel's launch counter must have risen in this phase.
-   Then ``torch.profiler`` traces the first 8 clips once more, and their
+   Then ``torch.profiler`` traces the first 4 clips once more, and their
    device busy time over their unprofiled wall time gives the device's
    idle share during ``recognize_clip``;
 4. big catalog: the same SIA ingests songs 2,035-2,713 (the reference's
@@ -103,7 +105,31 @@ Phases (each raises on failure; any failure exits non-zero):
    first launch of each kernel at each distinct shape in this phase (the
    daemon's padded micro-batches, stereo requests, the retries, both
    stream engines' feeds, slabs and windows) is held against its twin on
-   the same inputs, at phase 2's tolerances (``ShapeAudit``).
+   the same inputs, at phase 2's tolerances (``ShapeAudit``);
+7. device resident, on phase 6's SIA: ``SIA(device_resident=True,
+   device_reserve_hashes=2^25)`` starts from the same index
+   (``DeviceIndex.from_host``) and a copy of the catalog, and
+   ``ingest_device_batch`` takes 63 new seeded 30 s songs as 4 batches of
+   (16, 1,572,864) rows uploaded once each: two batches merged
+   (``merge_device_run``), two appended (``defer_sort``), the last song
+   stereo (two rows, one name), one row 12 s of tied noise, past the peak
+   capacity of 16,384, so that its 2x retry runs on the card. The store
+   must equal, row for row, the index phase 6's host-backed SIA builds
+   from the same songs (``ingest_arrays``, the stereo one through
+   ``ingest_channels``), with equal per-song hash counts and overflow
+   reports. 32 15 s clips (16 of the new songs) through ``recognize_clip``
+   and a ``recognize_batch`` of 8 must give the host-backed SIA's answers
+   by phase 5's rule; the clip p50 of both is printed. Then
+   ``ingest_channels`` merges a host addition into the store,
+   ``delete_songs`` and ``save_index`` follow, and a fresh host-backed SIA
+   from the file passes ``tools.fsck`` and answers 4 clips alike. Last,
+   the scale probe: random runs (song ids past the catalog) grow the
+   store to 2^27 = 134,217,728 rows; at the start, at 2^26 and at 2^27
+   rows one sorted 1,048,576-row run is timed (CUDA events) through
+   ``merge_device_run`` and, from the same state, ``append_run`` +
+   ``finalize`` (rows equal), then the ``query_cols()`` rebuild; the peak
+   device memory is recorded, and 8 catalog clips must answer as before.
+   Its launches pass a ``ShapeAudit`` as phase 6's do.
 
 It prints the card's name and power limit, build seconds, per-kernel
 times, ingest seconds and rows, clip latencies and the idle shares, then
@@ -145,7 +171,7 @@ CLIP_S = 5.0
 # K1 and its plain twin both compute in float64 and round to f32 once, so
 # they may differ only by that rounding; an f32 FFT misses this by far
 K1_DB_BOUND = 1e-3
-PROFILED_CLIPS = 8
+PROFILED_CLIPS = 4     # traced clips of phases 3 and 4: each trace costs seconds
 BIG_SONGS = 2714       # the reference's recorded catalog size
 BIG_CLIP_S = 15.0      # and its clip length
 CHECKED_CLIPS = 8
@@ -181,6 +207,18 @@ SERVE_STEREO = 4
 STREAM_S = 20.0
 STREAM_WINDOW_S = 15.0
 STREAM_FIRST_RECOGNIZE_S = 16.0
+# phase 7: 4 batches of 16 rows of 30 s songs into a device store (one
+# stereo song of 2 rows, one row dense enough to pass the ingest's peak
+# capacity of 16,384 and fit twice it), 32 clips, then the scale probe
+RESIDENT_BATCHES = 4
+RESIDENT_BATCH = 16
+RESIDENT_RESERVE = 1 << 25
+RESIDENT_DENSE_S = 12.0
+RESIDENT_CLIPS = 32
+RESIDENT_BATCH_CLIPS = 8
+PROBE_RUN = 1 << 20
+PROBE_AT = (1 << 26, 1 << 27)   # rows after the timed run, past the start
+PROBE_CHUNK = 1 << 24
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
 F64_FLOP_S = 34e12      # float64 outside the tensor cores
 F32_FLOP_S = 67e12      # float32 outside the tensor cores
@@ -469,8 +507,9 @@ class ShapeAudit:
 
 def _kernel_inputs():
     """Phase 2's inputs, [(label, rows, peak capacity)], each padded to its
-    bucket as the main path pads it: phase 3's ingest (8 x 30 s songs)
-    and 5 s clip, phase 4's 15 s clip, phase 6's daemon micro-batches of
+    bucket as the main path pads it: phase 3's ingest (8 x 30 s songs),
+    phase 7's device batch (16 x 30 s) and its retry batch (a dense row
+    cycle-padded to 16 rows, at twice the capacity), phase 3's 5 s clip, phase 4's 15 s clip, phase 6's daemon micro-batches of
     15 s clips padded to 2 and 4 rows with an empty row (pad_to_pow2; a
     stereo request has the 2-row shape), and phase 5's shapes --
     recognize_batch's 5 clips padded with 3 empty rows and its 32 clips,
@@ -482,8 +521,9 @@ def _kernel_inputs():
     from shazam_tpu_torch.audio import read, synth_song
     from shazam_tpu_torch.audio.resample import resample_channels
 
-    songs = [synth_song(i, 30.0, seed=i) for i in range(8)]
+    songs = [synth_song(i, 30.0, seed=i) for i in range(16)]
     clips = [synth_song(i, BIG_CLIP_S, seed=i) for i in range(32)]
+    dense = _dense(songs[5], np.random.default_rng(0), RESIDENT_DENSE_S)
     with tempfile.TemporaryDirectory() as tmp:
         def decoded(i, secs=30.0):
             samples, fs, kind = _file_song(i)
@@ -496,7 +536,9 @@ def _kernel_inputs():
         # songs 0, 3, 6 are stereo, 2 and 5 float32: 8 rows at 44.1 kHz
         streamed = [ch for i in (0, 2, 3, 5, 6) for ch in decoded(i)]
         resampled, file_clip = decoded(1), decoded(4, FILE_CLIP_S)
-    return (("ingest", songs, 16384),
+    return (("ingest", songs[:8], 16384),
+            ("resident_batch", songs, 16384),
+            ("resident_retry", [dense] * RESIDENT_BATCH, 32768),
             ("clip", [synth_song(0, CLIP_S, seed=0)], 8192),
             ("big_clip", clips[:1], 8192),
             ("batch_2_padded", clips[:1] + [np.zeros(0, np.int16)], 8192),
@@ -1284,16 +1326,16 @@ def files_and_batches(sia, first_id: int, n_files: int, big_clips, seed: int,
     return out
 
 
-def _dense(clip: np.ndarray, rng) -> np.ndarray:
-    """A clip whose first DENSE_NOISE_S seconds are seeded broadband noise
-    that repeats every hop, the rest the song. Frames inside the noise are
-    identical, so every frequency-local maximum ties with its neighbors in
-    time and counts as a peak: about 12,000 in a 15 s clip, past the
-    batch's peak capacity of 8,192. (Untied audio cannot get there: two
-    distinct peaks of a 21 x 21 neighborhood lie at least 11 cells apart,
-    at most 5,430 peaks in 321 frames, and random noise gives about 1 in
-    441 cells.)"""
-    n = int(DENSE_NOISE_S * FS)
+def _dense(clip: np.ndarray, rng, seconds: float = DENSE_NOISE_S) -> np.ndarray:
+    """A clip whose first ``seconds`` (DENSE_NOISE_S) are seeded broadband
+    noise that repeats every hop, the rest the song. Frames inside the
+    noise are identical, so every frequency-local maximum ties with its
+    neighbors in time and counts as a peak: about 12,000 in a 15 s clip,
+    past the batch's peak capacity of 8,192. (Untied audio cannot get
+    there: two distinct peaks of a 21 x 21 neighborhood lie at least 11
+    cells apart, at most 5,430 peaks in 321 frames, and random noise gives
+    about 1 in 441 cells.)"""
+    n = int(seconds * FS)
     period = rng.normal(0, 8000.0, HOP)
     out = clip.copy()
     out[:n] = np.clip(np.tile(period, -(-n // HOP))[:n], -32768,
@@ -1769,6 +1811,350 @@ def serve_and_stream(sia, big_clips, n_total: int, file_first: int,
     return out
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _resident_rows(first_id: int, seed: int):
+    """Phase 7's batches: [(names, song ids, per-row samples)], 16 rows
+    each. Song ``first_id + 5`` is dense (RESIDENT_DENSE_S seconds of tied
+    noise, over the ingest capacity and under twice it); the last song is
+    stereo, its two rows one name (the right channel 0.7x the left)."""
+    rng = np.random.default_rng(seed + 9)
+    n_rows = RESIDENT_BATCHES * RESIDENT_BATCH
+    ids = list(range(first_id, first_id + n_rows - 1))
+    with mp.get_context("spawn").Pool(os.cpu_count() or 1) as pool:
+        songs = dict(zip(ids, pool.map(_song, ids)))
+        pool.close()
+        pool.join()
+    songs[ids[5]] = _dense(songs[ids[5]], rng, RESIDENT_DENSE_S)
+    rows = [(i, songs[i]) for i in ids]
+    rows.append((ids[-1], (songs[ids[-1]] * 0.7).astype(np.int16)))
+    batches = [rows[b: b + RESIDENT_BATCH]
+               for b in range(0, n_rows, RESIDENT_BATCH)]
+    return songs, batches
+
+
+def _rows_equal(a, b) -> bool:
+    return a.n_hashes == b.n_hashes and all(
+        np.array_equal(getattr(a, c), getattr(b, c))
+        for c in ("key_hi", "key_lo", "key_ex", "song_id", "offset"))
+
+
+def _random_run(n: int, device, sid0: int, n_sids: int, max_off: int,
+                stride: int, gen):
+    """``n`` random rows on the card: 80-bit keys (never the sentinel's),
+    songs ``sid0`` up, the store's stride. Unsorted: ``finalize`` sorts
+    appended rows."""
+    import torch
+
+    from shazam_tpu_torch.index.search import query_key64
+
+    hi = torch.randint(0, (1 << 32) - 1, (n,), device=device, generator=gen)
+    lo = torch.randint(0, 1 << 32, (n,), device=device, generator=gen)
+    key64 = query_key64(hi, lo)
+    del hi, lo
+    ex = torch.randint(0, 1 << 16, (n,), device=device, generator=gen)
+    sid = torch.randint(sid0, sid0 + n_sids, (n,), device=device,
+                        generator=gen)
+    off = torch.randint(0, max_off + 1, (n,), device=device, generator=gen)
+    return key64, ex, sid * stride + off
+
+
+def _scale_probe(res, seed: int) -> dict:
+    """Phase 7's scale probe: grow the store with random rows (song ids
+    past the catalog) to 2^27 rows; at the start and at PROBE_AT, time one
+    PROBE_RUN-row sorted run through merge_device_run and, from the same
+    state, through append_run + finalize (the rows must come out equal),
+    then the query_cols() rebuild. CUDA-event ms. No query holds the
+    store's search view here, so it is dropped before each write (a
+    serving store copies its columns first instead)."""
+    import torch
+
+    from shazam_tpu_torch.index.devmerge import lexsort_rows
+
+    store = res._ensure_dev_store()
+    dev = store.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    sid0 = store.n_songs + 16
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        """(result, device ms by CUDA events, wall ms); off the card the
+        wall ms stands in for both."""
+        _sync(dev)
+        t = time.perf_counter()
+        if dev.type != "cuda":
+            out = fn()
+            wall = 1e3 * (time.perf_counter() - t)
+            return out, wall, wall
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b), 1e3 * (time.perf_counter() - t)
+
+    def checkpoint():
+        run = _random_run(PROBE_RUN, dev, sid0, 1024, 640, store.stride, gen)
+        order = lexsort_rows(*run)
+        run = tuple(c[order] for c in run)
+        n0 = store.n_valid
+        store._view = None
+        saved = (store.cols, store.n_valid, store._sorted_rows, None)
+        _, merge_ms, merge_wall = timed(lambda: store.merge_device_run(
+            run, PROBE_RUN, sid0 + 1024, 640))
+        merged = store.cols
+        store.cols, store.n_valid, store._sorted_rows, store._view = saved
+        _, append_ms, _ = timed(lambda: store.append_run(
+            run, PROBE_RUN, sid0 + 1024, 640))
+        _, finalize_ms, finalize_wall = timed(store.finalize)
+        n = store.n_valid
+        if n != n0 + PROBE_RUN or not all(
+                torch.equal(a[:n], b[:n]) for a, b in zip(store.cols, merged)):
+            raise AssertionError(f"scale probe at {n0} rows: append_run + "
+                                 "finalize differs from merge_device_run")
+        del merged, saved
+        _, view_ms, _ = timed(store.query_cols)
+        rec = {"rows_before": n0, "rows_after": n, "capacity": store.capacity,
+               "merge_device_run_ms": merge_ms, "merge_wall_ms": merge_wall,
+               "append_run_ms": append_ms, "finalize_ms": finalize_ms,
+               "finalize_wall_ms": finalize_wall, "query_cols_ms": view_ms}
+        print(f"scale probe at {n0} rows: merge_device_run of {PROBE_RUN} "
+              f"rows {merge_ms:.3f} ms (wall {merge_wall:.3f}); append_run "
+              f"{append_ms:.3f} ms + finalize {finalize_ms:.3f} ms (wall "
+              f"{finalize_wall:.3f}), rows equal; query_cols rebuild "
+              f"{view_ms:.3f} ms; capacity {store.capacity}", flush=True)
+        return rec
+
+    t0 = time.perf_counter()
+    out = {"start": checkpoint()}
+    grow_s = 0.0
+    for target in PROBE_AT:
+        t = time.perf_counter()
+        store._view = None
+        while store.n_valid < target - PROBE_RUN:
+            n = min(PROBE_CHUNK, target - PROBE_RUN - store.n_valid)
+            store.append_run(_random_run(n, dev, sid0, 1024, 640,
+                                         store.stride, gen),
+                             n, sid0 + 1024, 640)
+            store.finalize()
+        _sync(dev)
+        grow_s += time.perf_counter() - t
+        out[str(target)] = checkpoint()
+    if store.n_valid != PROBE_AT[-1]:
+        raise AssertionError(f"scale probe ended at {store.n_valid} rows")
+    out["grow_s"] = grow_s
+    out["peak_device_mib"] = (torch.cuda.max_memory_allocated() / 2**20
+                              if dev.type == "cuda" else None)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"scale probe: {store.n_valid} rows reached; growth {grow_s:.3f} s "
+          f"in appends of up to {PROBE_CHUNK} rows; peak device memory "
+          f"allocated {out['peak_device_mib']} MiB; "
+          f"{out['seconds']:.3f} s", flush=True)
+    res._host_stale = True
+    return out
+
+
+def device_resident(sia, big_clips, first_id: int, seed: int) -> dict:
+    """Phase 7 on phase 6's SIA: a device-resident SIA over the same
+    catalog and index ingests RESIDENT_BATCHES batches of 16 rows already
+    on the card (two merged, two appended with defer_sort; a stereo song;
+    a dense row whose 2x retry runs on the card), held row for row to the
+    host-backed SIA ingesting the same songs; 32 clips and a batch of 8
+    answered alike by both; ingest_channels, delete_songs, save_index, a
+    fresh SIA from the file with fsck; then the scale probe."""
+    import tempfile
+
+    import torch
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.tools.fsck import check_integrity
+
+    out = {}
+    rng = np.random.default_rng(seed + 11)
+    t = time.perf_counter()
+    songs, batches = _resident_rows(first_id, seed)
+    out["synth_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    res = SIA(device=sia.device, device_resident=True,
+              device_reserve_hashes=RESIDENT_RESERVE, index=sia.index)
+    sia.catalog.conn.backup(res.catalog.conn)
+    store = res._ensure_dev_store()
+    _sync(sia.device)
+    out["from_host_s"] = time.perf_counter() - t
+    print(f"device store: from_host of {store.n_valid} rows into capacity "
+          f"{store.capacity} in {out['from_host_s']:.3f} s", flush=True)
+
+    blen = 6 << 18
+    batch_ms, stats_all = [], []
+    for b, rows in enumerate(batches):
+        mat = np.zeros((len(rows), blen), np.int16)
+        for r, (_i, x) in enumerate(rows):
+            mat[r, : len(x)] = x
+        x = torch.from_numpy(mat).to(sia.device).to(torch.float32)
+        _sync(sia.device)
+        t = time.perf_counter()
+        st = res.ingest_device_batch([f"song{i:05d}" for i, _x in rows], x,
+                                     [len(x_) for _i, x_ in rows],
+                                     defer_sort=b >= len(batches) // 2)
+        _sync(sia.device)
+        batch_ms.append(1e3 * (time.perf_counter() - t))
+        stats_all.append(st)
+    n_songs = sum(st["ingested"] for st in stats_all)
+    fallbacks = sum(st.get("fallbacks", 0) for st in stats_all)
+    pending = store._unsorted
+    print(f"ingest_device_batch: {len(batches)} batches of "
+          f"{RESIDENT_BATCH} x 30 s rows ({n_songs} songs), ms per batch "
+          f"{[round(m, 3) for m in batch_ms]}, "
+          f"{n_songs / (sum(batch_ms) / 1e3):.3f} songs/s; merges "
+          f"{[st['merges'] for st in stats_all]}, fallbacks {fallbacks}, "
+          f"overflowed {[st['overflowed'] for st in stats_all]}, appends "
+          f"pending {pending}", flush=True)
+    if (n_songs != len(songs) or fallbacks != 1 or not pending
+            or any(st["overflowed"] for st in stats_all)
+            or sum(st["merges"] for st in stats_all) != len(batches) + 1):
+        raise AssertionError(f"ingest_device_batch stats {stats_all}")
+
+    # the host-backed SIA ingests the same songs in the same order (ids
+    # agree): the mono ones through ingest_arrays, the stereo one last
+    t = time.perf_counter()
+    stereo = batches[-1][-1][0]
+    mono = [(f"song{i:05d}", x) for i, x in songs.items() if i != stereo]
+    hst = sia.ingest_arrays(mono)
+    hst2 = sia.ingest_channels(f"song{stereo:05d}",
+                               [r[1] for r in batches[-1][-2:]])
+    out["host_ingest_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    got = res.index          # finalizes the appends, syncs to the host
+    out["sync_s"] = time.perf_counter() - t
+    want = sia.index
+    new_ids = sorted(songs)
+    names = {f"song{i:05d}" for i in new_ids}
+    d_counts, h_counts = (
+        {d["song_name"]: d["total_hashes"] for d in s.catalog.get_songs()
+         if d["song_name"] in names} for s in (res, sia))
+    same_rows = _rows_equal(got, want)
+    print(f"store held to the host path: {got.n_hashes} rows "
+          f"{'equal' if same_rows else 'DIFFER'} row for row; per-song "
+          f"hash counts {'equal' if d_counts == h_counts else 'DIFFER'} "
+          f"({len(d_counts)} songs); host fallbacks "
+          f"{hst.get('fallbacks', 0)}, overflowed {hst['overflowed']}; host "
+          f"ingest {out['host_ingest_s']:.3f} s, store sync {out['sync_s']:.3f}"
+          " s", flush=True)
+    if not (same_rows and d_counts == h_counts and len(d_counts) == len(songs)
+            and hst.get("fallbacks", 0) == 1 and not hst["overflowed"]
+            and hst2["ingested"] == 1):
+        raise AssertionError("device store differs from the host ingest")
+
+    # 32 clips: 16 of the new songs (not the dense one), 16 of phase 4's
+    clip_len = int(BIG_CLIP_S * FS)
+    max_frame = (int(30.0 * FS) - clip_len) // HOP
+    jobs = []
+    for i in [i for i in new_ids if i != new_ids[5]][: RESIDENT_CLIPS // 2]:
+        frame = int(rng.integers(0, max_frame + 1))
+        jobs.append((i, frame, songs[i][frame * HOP: frame * HOP + clip_len]))
+    jobs += list(big_clips[: RESIDENT_CLIPS - len(jobs)])
+    res.recognize_clip(jobs[0][2])     # warm-up
+    lat = {"resident": [], "host": []}
+    answers = {}
+    for name, s_ in (("resident", res), ("host", sia)):
+        answers[name] = []
+        for sid, frame, c in jobs:
+            t = time.perf_counter()
+            r = s_.recognize_clip(c)
+            lat[name].append(time.perf_counter() - t)
+            if not _right(r, sid, frame * HOP / FS):
+                raise AssertionError(f"{name} SIA: clip of {sid} wrong: "
+                                     f"{r['results'][:1]}")
+            answers[name].append(_answer(r))
+    solo = answers["host"]
+    exact = {}
+    bad = [(j, solo[j], a) for j, a in enumerate(answers["resident"])
+           if not _held_to_solo(sia, [jobs[j][2]], solo, exact, j, a)]
+    batch = [c for _s, _f, c in jobs[: RESIDENT_BATCH_CLIPS]]
+    b_host = [_answer(r) for r in sia.recognize_batch(batch)]
+    exact_b = {}
+    bad += [(j, b_host[j], _answer(r)) for j, r
+            in enumerate(res.recognize_batch(batch))
+            if not _held_to_solo(sia, [batch[j]], b_host, exact_b, j,
+                                 _answer(r))]
+    identical = sum(a == b for a, b in zip(answers["resident"], solo))
+    p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
+    print(f"recognize_clip: {len(jobs)} clips of {BIG_CLIP_S} s, p50 "
+          f"resident {p50['resident']:.3f} ms, host-backed "
+          f"{p50['host']:.3f} ms; {identical} answers identical, "
+          f"{len(jobs) - identical} equal by phase 5's rule (exact counts "
+          f"taken {len(exact)}); recognize_batch of "
+          f"{RESIDENT_BATCH_CLIPS} equal; differences {len(bad)}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"resident answers differ: {bad[:3]}")
+    out.update(songs=len(songs), batch_ms=batch_ms,
+               songs_per_s=n_songs / (sum(batch_ms) / 1e3),
+               fallbacks=fallbacks, clip_p50_ms=p50, identical=identical)
+
+    # mutate: a host addition merged into the store, a delete, a save
+    extra = first_id + len(batches) * RESIDENT_BATCH
+    t = time.perf_counter()
+    st = res.ingest_channels(f"song{extra:05d}", [_song(extra)])
+    merged_ok = res._dev_store is not None and res._host_stale
+    gone = new_ids[1]
+    removed = res.delete_songs(
+        [d["song_id"] for d in res.catalog.get_songs()
+         if d["song_name"] == f"song{gone:05d}"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resident.npz")
+        res.save_index(path)
+        out["mutate_s"] = time.perf_counter() - t
+        fresh = SIA(device=sia.device)
+        res.catalog.conn.backup(fresh.catalog.conn)
+        fresh.load_index(path)
+        report = check_integrity(fresh, deep=True)
+    checked = [(c, s_, f) for s_, f, c in jobs if s_ != gone][:3]
+    frame = 100
+    checked.append((_song(extra)[frame * HOP: frame * HOP + clip_len],
+                    extra, frame))
+    def top1(s_, c):
+        a = _answer(s_.recognize_samples([c]))
+        return a["song_id"], a["offset"]
+
+    same = all(top1(fresh, c) == top1(res, c)
+               and _right(fresh.recognize_samples([c]), s_, f * HOP / FS)
+               for c, s_, f in checked)
+    print(f"mutation: ingest_channels merged into the store "
+          f"({st['hashes']} rows, store kept {merged_ok}); delete of song "
+          f"{gone}: {removed} rows; save_index; a fresh SIA from the file: "
+          f"fsck {'ok' if report['ok'] else report['errors']}, 4 clips "
+          f"{'alike' if same else 'DIFFER'}; {out['mutate_s']:.3f} s",
+          flush=True)
+    if not (merged_ok and st["ingested"] == 1 and removed > 0
+            and report["ok"] and same):
+        raise AssertionError("resident mutation round failed")
+    del fresh
+
+    before = [_answer(res.recognize_clip(c)) for _s, _f, c in big_clips[:8]]
+    out["scale_probe"] = _scale_probe(res, seed)
+    after = [_answer(res.recognize_clip(c)) for _s, _f, c in big_clips[:8]]
+    if not all(_same_answer(a, b) for a, b in zip(before, after)):
+        raise AssertionError(f"answers changed at {PROBE_AT[-1]} rows: "
+                             f"{before[:2]} {after[:2]}")
+    print(f"8 catalog clips at {PROBE_AT[-1]} rows: answers unchanged",
+          flush=True)
+    res._dev_store = None
+    del res, store
+    if sia.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--songs", type=int, default=2035)
@@ -1846,6 +2232,21 @@ def main(argv=None) -> int:
         sia, big_clips, args.big_songs + args.file_songs, args.big_songs,
         args.file_songs, args.seed, workers))
 
+    def resident():
+        with ShapeAudit(sia.config) as audit:
+            out = device_resident(sia, big_clips,
+                                  args.big_songs + args.file_songs + 2,
+                                  args.seed)
+        out["twin_audit"] = audit.check()
+        print("phase 7's first launch at each shape equal to its plain twin "
+              "(K1 in dB): " + "; ".join(
+                  f"{name} at {[k for k, _ in v]}, max err "
+                  f"{max((e for _, e in v), default=0)}"
+                  for name, v in out["twin_audit"].items()), flush=True)
+        return out
+
+    resident_out, launches_resident = launched("device resident", resident)
+
     report = []
     for name, source, replaces in KERNELS:
         m = measured[name]
@@ -1856,6 +2257,7 @@ def main(argv=None) -> int:
             "launches_big_catalog": launches_big[name],
             "launches_files_batches": launches_files[name],
             "launches_serve_stream": launches_serve[name],
+            "launches_device_resident": launches_resident[name],
             "max_abs_err": max(r["err"] for r in m.values()),
             **{k: m["ingest"][k] for k in (
                 "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
@@ -1865,7 +2267,8 @@ def main(argv=None) -> int:
     print(f"whole run {time.perf_counter() - t0:.3f} s", flush=True)
     print(json.dumps({"kernels": report, "end_to_end": e2e,
                       "big_catalog": big, "files_and_batches": files,
-                      "serve_and_stream": served}),
+                      "serve_and_stream": served,
+                      "device_resident": resident_out}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,12 +33,19 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   one batch) + ``match_prepared_batch`` (one batched match dispatch,
   ``match/batched.py``, then per-clip escalation and alignment): per-clip
   results equal ``recognize_samples`` on each clip alone.
-- ``save_index``/``load_index``: the JAX package's flat ``.npz`` format.
+- ``save_index``/``load_index``: the JAX package's flat ``.npz`` format;
+  ``load_index`` also reads its span-wise files, flattened on the host.
+- ``SIA(device_resident=True)``: the index lives in a device store
+  (``index/devmerge.DeviceIndex``) that absorbs every addition on the
+  device, so ingest makes no host merge and queries no re-upload; the
+  host index is synced from the store only when read (save, stats,
+  deletes). ``SIA.ingest_device_batch`` ingests a (B, N) batch already on
+  the device: fingerprints, the sorted deduped run
+  (``index/devingest.py``) and the merge never leave it.
 
 The serving daemon (``serve.py``) and streaming recognition
 (``stream.py``, ``stream_device.py``) sit on top of this class. Not ported
-yet: the device-resident and spanned stores, the unique-view search,
-apriori.
+yet: the spanned store, the unique-view search, apriori.
 
 Shapes are bucketed (padded to the next 2^18-sample multiple), as in the
 JAX package, so both packages see the same frame counts.
@@ -60,6 +67,10 @@ from .audio.resample import resample_channels
 from .config import DEFAULT_CONFIG, FingerprintConfig
 from .device import resolve_device
 from .index.catalog import SongCatalog
+from .index.devingest import device_sorted_run
+from .index.devmerge import (DeviceIndex as DeviceStore, capacity_for,
+                             is_spanned_file, load_spanned_flat,
+                             packed_stride_for)
 from .index.store import DeviceIndex, FingerprintIndex, build_index, merge_into
 from .match.align import align_results
 from .match.batched import (batched_raw_to_host, match_queries_batched,
@@ -167,17 +178,25 @@ class SIA:
     Audio files at another sample rate are polyphase-resampled to
     ``config.sample_rate`` (``resample=True``) or rejected with a
     ``ValueError`` (``resample=False``).
+
+    ``device_resident=True`` keeps the index in a device store
+    (``index/devmerge.DeviceIndex``) that absorbs every ingest on the
+    device; ``device_reserve_hashes`` preallocates its capacity. The host
+    index is then synced from the store when read.
     """
 
     def __init__(self, config: FingerprintConfig = DEFAULT_CONFIG,
                  catalog_path: str = ":memory:",
                  index: Optional[FingerprintIndex] = None, device="cuda",
-                 resample: bool = True):
+                 resample: bool = True, device_resident: bool = False,
+                 device_reserve_hashes: int = 0):
         self.config = config
         self.device = resolve_device(device)
         self.resample = resample
         self.catalog = SongCatalog(catalog_path)
         self.catalog.delete_unfingerprinted()  # reference crash recovery
+        self.device_resident = device_resident
+        self.device_reserve_hashes = device_reserve_hashes
         self.index = index or build_index([], n_songs=0)
         self._max_off = 0
         # self-tuning decide tier (config.decide_adapt_window): [attempts,
@@ -185,22 +204,61 @@ class SIA:
         self._decide_stats = [0, 0]
         self._decide_boost = 0
         # the serving daemon's batcher and match threads may both reach
-        # the first query after a change: one of them uploads the index
-        self._upload_lock = threading.Lock()
+        # the first query after a change (one of them uploads the index),
+        # and a device store's merges and search-view rebuilds must not
+        # interleave: both happen under this lock (reentrant: the index
+        # property syncs under it, inside sections that hold it)
+        self._upload_lock = threading.RLock()
 
     @property
     def index(self) -> FingerprintIndex:
+        """The host index; a device-resident SIA syncs it from the store
+        when an ingest has changed the store since the last read."""
+        if self._host_stale:
+            with self._upload_lock:
+                if self._host_stale:
+                    self._index = self._dev_store.to_host()
+                    self._host_stale = False
         return self._index
 
     @index.setter
     def index(self, ix: FingerprintIndex) -> None:
+        """Replace the host index; any device copy or store is dropped and
+        rebuilt from it on the next query."""
         self._index = ix
+        self._host_stale = False
+        self._dev_store: Optional[DeviceStore] = None
         self._device_index: Optional[DeviceIndex] = None
 
+    def _live_n_songs(self) -> int:
+        """Catalog size of the live index, without syncing a store."""
+        store = self._dev_store
+        return store.n_songs if store is not None else self._index.n_songs
+
     def _live_n_hashes(self) -> int:
-        """Rows of the live index (the host index: the device-resident and
-        spanned stores are not ported)."""
-        return self._index.n_hashes
+        """Rows of the live index, without syncing a store."""
+        store = self._dev_store
+        return store.n_valid if store is not None else self._index.n_hashes
+
+    def _ensure_dev_store(self) -> DeviceStore:
+        """The device store, built from the host index on first use."""
+        with self._upload_lock:
+            if self._dev_store is None:
+                self._dev_store = DeviceStore.from_host(
+                    self.index, reserve=self.device_reserve_hashes,
+                    device=self.device)
+            return self._dev_store
+
+    def _absorb_addition(self, addition: FingerprintIndex) -> None:
+        """Merge a sorted addition run into the live index: on the host
+        (``merge_into``; the device copy is uploaded again on the next
+        query), or, device-resident, into the store on the device."""
+        with self._upload_lock:
+            if self.device_resident:
+                self._ensure_dev_store().merge(addition)
+                self._host_stale = True
+            else:
+                self.index = merge_into(self.index, addition)
 
     # ------------------------------------------------------------------ #
     # ingest
@@ -295,6 +353,151 @@ class SIA:
             batch_size=batch_size, song_peak_capacity=song_peak_capacity,
             verbose=False)
 
+    def ingest_device_batch(self, names: Sequence[str], samples: torch.Tensor,
+                            n_valid_samples: Sequence[int],
+                            shas: Optional[Sequence[str]] = None,
+                            song_peak_capacity: Optional[int] = None,
+                            per_song_hash_capacity: int = 32768,
+                            group_cap: int = 8,
+                            defer_sort: bool = False) -> Dict:
+        """Ingest a (B, blen) float32 batch of audio already on the SIA's
+        device (``device_resident=True`` only; a tensor on another device
+        raises). Fingerprints, the sorted deduped addition run
+        (``index/devingest.py``) and the merge stay on the device; the host
+        sends the (B,) song ids and reads back the run length, per-song
+        counts, the overflow flag and the peak counts once per run. Rows
+        with the same name are the channels of one song (their set-union
+        is the run's dedup).
+
+        ``shas`` are the resume keys, by default the SHA-1 of each name;
+        rows whose key is already fingerprinted are skipped. A row whose
+        peaks pass the capacity is masked out of the first run; with
+        ``group_cap < 12`` the over-capacity rows run again at twice the
+        capacity, cycle-padded to B rows, and with ``group_cap >= 12`` they
+        are dropped. (In the JAX package ``group_cap`` also sizes its
+        compaction kernel's tables; the port's K3 counts exactly, so here
+        it chooses only between that retry and the drop.) A row still over
+        capacity is reported in ``overflowed`` and left unfingerprinted,
+        to be purged on the next open. ``defer_sort`` appends each run
+        (``DeviceIndex.append_run``) and sorts on the next query or save,
+        instead of merging it now. Stats keys are the JAX package's.
+        """
+        if not self.device_resident:
+            raise ValueError("ingest_device_batch requires "
+                             "SIA(device_resident=True)")
+        if not isinstance(samples, torch.Tensor) or samples.device != self.device:
+            raise ValueError(
+                f"samples must be a tensor on {self.device} (got "
+                f"{getattr(samples, 'device', type(samples).__name__)})")
+        t_start = time.time()
+        bsz = int(samples.shape[0])
+        if len(names) != bsz or len(n_valid_samples) != bsz:
+            raise ValueError("names / n_valid_samples must match batch")
+        if shas is None:
+            shas = [hashlib.sha1(n.encode()).hexdigest().upper()
+                    for n in names]
+        stats = {"files": len(set(names)), "skipped": 0, "ingested": 0,
+                 "hashes": 0, "overflowed": [], "merges": 0}
+        known = self.catalog.fingerprinted_file_hashes()
+        keep = [i for i, s in enumerate(shas) if s.upper() not in known]
+        stats["skipped"] = stats["files"] - len({names[i] for i in keep})
+        if not keep:
+            stats["seconds"] = time.time() - t_start
+            return stats
+        if len(keep) != bsz:
+            samples = samples[torch.tensor(keep, device=self.device)]
+            names = [names[i] for i in keep]
+            shas = [shas[i] for i in keep]
+            n_valid_samples = [n_valid_samples[i] for i in keep]
+            bsz = len(keep)
+        n_valid_samples = [int(n) for n in n_valid_samples]
+        nv = torch.tensor(n_valid_samples, dtype=torch.int32,
+                          device=self.device)
+        peak_cap = self._peak_cap(song_peak_capacity)
+        fp = self._fingerprint(samples, nv, peak_cap)
+
+        # catalog rows first: the run's payloads carry the real song ids
+        sid_of_name: Dict[str, int] = {}
+        for name, sha in zip(names, shas):
+            if name not in sid_of_name:
+                sid_of_name[name] = self.catalog.insert_song(name, sha, 0)
+        row_sids = np.asarray([sid_of_name[n] for n in names], np.int64)
+        # the stride covers the largest offset the rows can have
+        wsize, hop = self.config.window_size, self.config.hop
+        bound_off = max(max((n - wsize) // hop + 1 for n in n_valid_samples),
+                        0)
+        song_totals: Dict[int, int] = {}
+
+        with self._upload_lock:
+            n_songs_new = max(int(row_sids.max()) + 1, self._live_n_songs())
+            store = self._ensure_dev_store()
+            max_off = max(store.max_offset, bound_off)
+            if not packed_stride_for(max_off, n_songs_new):
+                raise ValueError(
+                    "catalog too large for the packed payload layout; "
+                    "use the host ingest path (ingest_arrays/ingest_files)")
+            store._ensure_layout(max_off)
+
+            def run_and_merge(one_fp, sids, keep_rows):
+                """One addition run of ``one_fp``'s rows where
+                ``keep_rows`` (a (B,) device mask), absorbed into the
+                store; returns the rows' peak counts."""
+                valid = one_fp.valid & keep_rows[:, None]
+                cap = capacity_for(valid.shape[0] * per_song_hash_capacity)
+                cols, n_run, counts, overflowed = device_sorted_run(
+                    one_fp.hi, one_fp.lo, one_fp.ex, one_fp.t1, valid,
+                    torch.from_numpy(sids).to(self.device),
+                    stride=store.stride, addition_cap=cap)
+                host = torch.cat([torch.stack([n_run, overflowed.long()]),
+                                  counts, one_fp.n_peaks.long()]).cpu()
+                n_run, over = int(host[0]), bool(host[1])
+                counts = host[2: 2 + len(sids)].numpy()
+                if over:
+                    raise ValueError(
+                        f"device addition run overflowed {cap} rows; raise "
+                        "per_song_hash_capacity")
+                absorb = store.append_run if defer_sort else store.merge_device_run
+                absorb(cols, n_run, n_songs_new, bound_off)
+                self._host_stale = True
+                stats["merges"] += 1
+                stats["hashes"] += n_run
+                per_sid = {int(sid): int(c) for sid, c in zip(sids, counts)
+                           if c}   # every row of a song reports its total
+                for sid, c in per_sid.items():
+                    song_totals[sid] = song_totals.get(sid, 0) + c
+                return host[2 + len(sids):].numpy()
+
+            n_peaks = run_and_merge(fp, row_sids, fp.n_peaks <= peak_cap)
+            over_rows = [i for i in range(bsz) if n_peaks[i] > peak_cap]
+            if over_rows:
+                # NB a song whose channels split across the two runs gets
+                # no cross-run union (its counts add), as in the JAX package
+                stats["fallbacks"] = len(over_rows)
+                if _fused_ok(self.config) and group_cap >= 12:
+                    dead = list(range(len(over_rows)))
+                else:
+                    retry_rows = (over_rows * bsz)[:bsz]   # cycle-pad to B
+                    idx = torch.tensor(retry_rows, device=self.device)
+                    retry_fp = self._fingerprint(samples[idx], nv[idx],
+                                                 2 * peak_cap)
+                    pad = torch.arange(bsz, device=self.device) >= len(over_rows)
+                    retry_n = run_and_merge(
+                        retry_fp, row_sids[retry_rows],
+                        (retry_fp.n_peaks <= 2 * peak_cap) & ~pad)
+                    dead = [j for j in range(len(over_rows))
+                            if retry_n[j] > 2 * peak_cap]
+                stats["overflowed"] = [names[over_rows[j]] for j in dead]
+
+        dead_names = set(stats["overflowed"])
+        for name, sid in sid_of_name.items():
+            if name in dead_names:
+                continue   # unfingerprinted: purged on the next open
+            self.catalog.update_song_hashes(sid, song_totals.get(sid, 0))
+            self.catalog.set_song_fingerprinted(sid)
+            stats["ingested"] += 1
+        stats["seconds"] = time.time() - t_start
+        return stats
+
     def _peak_cap(self, song_peak_capacity: Optional[int]) -> int:
         return song_peak_capacity or max(self.config.peak_capacity, 16384)
 
@@ -340,9 +543,8 @@ class SIA:
         """Merge finished songs' (sid, hi, lo, ex, t1) runs into the index,
         then mark them fingerprinted (durable only after the merge: the
         reference's set_song_fingerprinted rule)."""
-        n_songs = max(max(e[0] for e in entries) + 1, self.index.n_songs)
-        self.index = merge_into(self.index,
-                                build_index(entries, n_songs=n_songs))
+        n_songs = max(max(e[0] for e in entries) + 1, self._live_n_songs())
+        self._absorb_addition(build_index(entries, n_songs=n_songs))
         for sid, *_rest in entries:
             self.catalog.set_song_fingerprinted(sid)
 
@@ -515,7 +717,13 @@ class SIA:
     # recognition
     # ------------------------------------------------------------------ #
     def _ensure_device_index(self) -> DeviceIndex:
+        """The search view on the device: the store's when device-resident,
+        else the host index uploaded after its last change."""
         with self._upload_lock:
+            if self.device_resident:
+                store = self._ensure_dev_store()
+                self._max_off = ((store.max_offset // 4096) + 1) * 4096
+                return store.query_cols()
             if self._device_index is None:
                 self._device_index = self.index.device_arrays(self.device)
                 # histogram window base: covers the longest song, rounded
@@ -555,7 +763,7 @@ class SIA:
         return self._n_songs() * delta_range > self.config.sparse_vote_threshold
 
     def _n_songs(self) -> int:
-        return max(self.index.n_songs, 1)
+        return max(self._live_n_songs(), 1)
 
     def _to_device(self, samples: np.ndarray):
         """(1, bucketed) f32 clip and its (1,) valid length on the device."""
@@ -710,10 +918,12 @@ class SIA:
                 for name in QUERY_COLUMNS]
 
     def _big_index(self, index: DeviceIndex) -> bool:
-        """The index is at least ``bounds_probe_min_rows`` rows (0: never),
-        where the escalation policy chooses the first dispatch."""
+        """The index holds at least ``bounds_probe_min_rows`` real rows (0:
+        never), where the escalation policy chooses the first dispatch.
+        Real rows, not the capacity the JAX package reads: a device
+        store's reserved capacity must not change how a clip is matched."""
         rows = self.config.bounds_probe_min_rows
-        return bool(rows) and self._index_rows(index) >= rows
+        return bool(rows) and index.n_rows >= rows
 
     def _decide_first(self) -> bool:
         pol = self.config.escalation_policy
@@ -1154,25 +1364,35 @@ class SIA:
         return self._drop_song_rows(ids)
 
     def _drop_song_rows(self, ids) -> int:
-        ix = self.index
-        keep = ~np.isin(ix.song_id, list(ids))
-        removed = int((~keep).sum())
-        if removed:
-            offset = ix.offset[keep]
-            self.index = FingerprintIndex(
-                ix.key_hi[keep], ix.key_lo[keep], ix.key_ex[keep],
-                ix.song_id[keep], offset, n_songs=ix.n_songs,
-                max_offset=int(offset.max()) if len(offset) else 0)
+        """Rebuild the host index without ``ids``' rows (a device store is
+        synced first and dropped, as in the JAX package); rows removed."""
+        with self._upload_lock:
+            ix = self.index
+            keep = ~np.isin(ix.song_id, list(ids))
+            removed = int((~keep).sum())
+            if removed:
+                offset = ix.offset[keep]
+                self.index = FingerprintIndex(
+                    ix.key_hi[keep], ix.key_lo[keep], ix.key_ex[keep],
+                    ix.song_id[keep], offset, n_songs=ix.n_songs,
+                    max_offset=int(offset.max()) if len(offset) else 0)
         return removed
 
     def save_index(self, path: str) -> None:
-        """Persist the index as the flat sorted ``.npz`` both packages read."""
+        """Persist the index as the flat sorted ``.npz`` both packages read
+        (a device store is synced to the host first)."""
         self.index.save(path)
 
     def load_index(self, path: str) -> None:
-        """Load a flat ``.npz`` index, then restore the catalog invariant
-        (fingerprinted flag <=> hash rows present)."""
-        self.index = FingerprintIndex.load(path)
+        """Load a flat ``.npz`` index, or the JAX package's span-wise one
+        flattened on the host (``index/devmerge.load_spanned_flat``), then
+        restore the catalog invariant (fingerprinted flag <=> hash rows
+        present). A device-resident SIA uploads it into a new store on the
+        next query."""
+        if is_spanned_file(path):
+            self.index = load_spanned_flat(path)
+        else:
+            self.index = FingerprintIndex.load(path)
         self._reconcile_catalog()
 
     def _reconcile_catalog(self) -> None:

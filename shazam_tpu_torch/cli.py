@@ -42,7 +42,8 @@ def _open_sia(args, need_index: bool):
 
     config = load_config(args.config) if args.config else FingerprintConfig()
     sia = SIA(config=config, catalog_path=args.db + ".sqlite",
-              device=args.device)
+              device=args.device,
+              device_resident=getattr(args, "device_resident", False))
     index_path = args.db + ".npz"
     if os.path.exists(index_path):
         sia.load_index(index_path)
@@ -190,12 +191,17 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--limit", type=float, default=None,
                    help="seconds per file to fingerprint")
     s.add_argument("--batch-size", type=int, default=8)
+    s.add_argument("--device-resident", action="store_true",
+                   help="merge fingerprints into an index held on the "
+                        "device (index/devmerge.py): no host merges")
     s.set_defaults(fn=cmd_ingest)
 
     s = sub.add_parser("recognize", help="identify one audio file")
     s.add_argument("file")
     s.add_argument("--limit", type=float, default=None)
     s.add_argument("--topn", type=int, default=2)
+    s.add_argument("--device-resident", action="store_true",
+                   help="serve the index from a device store")
     s.set_defaults(fn=cmd_recognize)
 
     s = sub.add_parser("stats", help="dump per-song hash stats CSV")
@@ -274,6 +280,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "catalog mutations (/ingest, /delete, /save); "
                         "prefer the SHAZAM_SERVE_TOKEN env var to keep "
                         "the secret out of the process list")
+    s.add_argument("--device-resident", action="store_true",
+                   help="serve the index from a device store: online "
+                        "ingests merge on the device")
     s.set_defaults(fn=cmd_serve)
 
     s = sub.add_parser("synth", help="generate a deterministic WAV corpus")

@@ -22,6 +22,13 @@ reductions on the device only: its real rows are as many as the host's,
 its search keys sorted, its sentinel rows intact and its packed payload
 below ``n_songs * stride``.
 
+A device-resident SIA's store (``index/devmerge.DeviceIndex``) takes the
+host index's place, as in the JAX package: its rows sorted by (key64, ex,
+payload), its sentinel rows intact and its payload below ``n_songs *
+stride``, each one reduction on its device, and its rows as many as the
+catalog records. Deferred-sort appends still pending are a WARNING (their
+order is not checked; the next query sorts them).
+
 Catalog-side (always):
 
 - fingerprinted songs with zero recorded hashes (WARNING);
@@ -65,6 +72,56 @@ def _device_checks(dix) -> Dict[str, object]:
             "payload_max": int(p_max)}
 
 
+def _store_checks(store) -> Dict[str, object]:
+    """(sorted, sentinels intact, payload max) of a device store, each one
+    reduction on its device; sortedness is not checked (True) while
+    deferred-sort appends are pending."""
+    n = store.n_valid
+    k, e, p = (c[:n] for c in store.cols)
+    ok = torch.ones((), dtype=torch.bool, device=k.device)
+    if not store._unsorted and n > 1:
+        ok = torch.all((k[1:] > k[:-1]) | ((k[1:] == k[:-1]) & (
+            (e[1:] > e[:-1]) | ((e[1:] == e[:-1]) & (p[1:] >= p[:-1])))))
+    pad = torch.all(store.cols[0][n:] == _INT64_MAX) \
+        & torch.all(store.cols[1][n:] == _INT64_MAX)
+    p_max = p.max() if n else p.new_zeros(())
+    s_ok, pad_ok, p_max = torch.stack(
+        [ok.to(torch.int64), pad.to(torch.int64), p_max]).tolist()
+    return {"sorted": bool(s_ok), "sentinels": bool(pad_ok),
+            "payload_max": int(p_max)}
+
+
+def _check_store(store, catalog_total: int, errors: List[str],
+                 warnings: List[str], checks: Dict[str, object]) -> None:
+    """The device store's branch (the JAX package's store branch, without
+    spans)."""
+    checks["store"] = type(store).__name__
+    checks["resident"] = True
+    checks["index_hashes"] = store.n_valid
+    checks["capacity"] = store.capacity
+    if store._unsorted:
+        warnings.append(
+            "the device store holds deferred-sort appends — queries "
+            "finalize them first (their order is not checked)")
+    dev = _store_checks(store)
+    if not dev["sorted"]:
+        errors.append("device store rows are not sorted "
+                      "(binary search would be unsound)")
+    if not dev["sentinels"]:
+        errors.append("device store padding rows are not sentinels")
+    limit = max(store.n_songs, 1) * store.stride
+    if store.n_valid and dev["payload_max"] >= limit:
+        errors.append(
+            f"device store payload max {dev['payload_max']} exceeds "
+            f"n_songs*stride ({max(store.n_songs, 1)}*{store.stride}) — "
+            "song id or offset out of range")
+    if store.n_valid != catalog_total:
+        errors.append(
+            f"index holds {store.n_valid} rows but the catalog records "
+            f"{catalog_total} — reconcile with load_index or re-ingest the "
+            "difference")
+
+
 def check_integrity(sia, deep: bool = True) -> Dict:
     """Validate ``sia``'s live index + catalog; returns a report dict
     with ``ok`` / ``errors`` / ``warnings`` / ``checks``."""
@@ -97,6 +154,13 @@ def check_integrity(sia, deep: bool = True) -> Dict:
     checks["catalog_songs"] = len(songs)
     catalog_total = sum(catalog_hashes.get(sid, 0) for sid in songs)
     checks["catalog_hashes"] = catalog_total
+
+    store = sia._dev_store
+    if store is not None:
+        with sia._upload_lock:
+            _check_store(store, catalog_total, errors, warnings, checks)
+        return {"ok": not errors, "errors": errors, "warnings": warnings,
+                "checks": checks}
 
     # ---- host index -----------------------------------------------------
     ix = sia.index

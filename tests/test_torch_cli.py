@@ -112,13 +112,38 @@ def test_synth_writes_the_jax_corpus(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["bench", "x"], ["plot", "x.wav"], ["recognize", "x.wav", "--early-exit"],
-    ["ingest", "x", "--device-resident"], ["serve", "--span-rows", "8"],
+    ["ingest", "x", "--span-rows", "8"], ["serve", "--span-rows", "8"],
     ["serve", "--consolidate"],
 ])
 def test_flags_the_port_cannot_honor_are_refused(argv, capsys):
     with pytest.raises(SystemExit) as ei:
         cli.build_parser().parse_args(argv)
     assert ei.value.code == 2
+
+
+def test_device_resident_ingest_then_recognize(workspace, tmp_path, capsys):
+    """--device-resident on ingest and recognize: the songs merge into a
+    store on the device, the saved index equals a host-backed ingest's,
+    and recognize answers from a store built from that file."""
+    import numpy as np
+
+    from shazam_tpu_torch.index.store import FingerprintIndex
+
+    db = str(tmp_path / "resident")
+    out = _run(capsys, "--db", db, "ingest", workspace["songs"],
+               "--device-resident")
+    assert out["ingested"] == 3 and not out["overflowed"]
+    got = FingerprintIndex.load(db + ".npz")
+    want = FingerprintIndex.load(workspace["db"] + ".npz")
+    for name in ("key_hi", "key_lo", "key_ex", "song_id", "offset"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    track = sorted(os.listdir(workspace["songs"]))[2]
+    out = _run(capsys, "--db", db, "recognize",
+               os.path.join(workspace["songs"], track), "--limit", "5",
+               "--device-resident")
+    assert out["results"][0]["song_name"] == os.path.splitext(track)[0]
+    assert cli.build_parser().parse_args(
+        ["serve", "--device-resident"]).device_resident
 
 
 def test_config_file(workspace, tmp_path, capsys):

@@ -525,3 +525,80 @@ def test_daemon_on_cuda_answers_concurrent_requests(cuda):
         assert out["results"][0]["song_name"] == f"s{k % 8}"
     assert stats["errors"] == 0 and stats["requests"] == 16
     assert stats["batches"] < 16
+
+
+def test_device_store_on_cuda_equals_cpu(cuda):
+    """The device store's merges, appends and search view on the card
+    equal the same operations on the CPU, row for row."""
+    from shazam_tpu_torch.index.devmerge import DeviceIndex, host_cols
+    from shazam_tpu_torch.index.store import FingerprintIndex
+
+    rng = np.random.default_rng(3)
+
+    def run(n):
+        cols = [rng.integers(0, 64, n, dtype=np.uint32),
+                rng.integers(0, 1 << 32, n, dtype=np.uint32),
+                rng.integers(0, 3, n, dtype=np.uint32),
+                rng.integers(0, 40, n, dtype=np.uint32),
+                rng.integers(0, 3000, n, dtype=np.uint32)]
+        order = np.lexsort(cols[::-1])
+        return FingerprintIndex(*(c[order] for c in cols), n_songs=40,
+                                max_offset=int(cols[4].max()))
+
+    base = run(70_000)
+    stores = {d: DeviceIndex.from_host(base, reserve=1 << 17, device=d)
+              for d in (cuda, "cpu")}
+    for k in range(4):
+        add = run(5_000 + 97 * k)
+        for d, store in stores.items():
+            if k % 2:
+                cols = tuple(torch.from_numpy(c).to(d)
+                             for c in host_cols(add, store.stride))
+                store.append_run(cols, add.n_hashes, add.n_songs,
+                                 add.max_offset)
+            else:
+                store.merge(add)
+    gpu, cpu = (stores[d].query_cols() for d in (cuda, "cpu"))
+    assert gpu.n_rows == cpu.n_rows and gpu.stride == cpu.stride
+    for a, b in zip(gpu[:3], cpu[:3]):
+        assert torch.equal(a.cpu(), b)
+    host_gpu, host_cpu = stores[cuda].to_host(), stores["cpu"].to_host()
+    for name in ("key_hi", "key_lo", "key_ex", "song_id", "offset"):
+        assert np.array_equal(getattr(host_gpu, name), getattr(host_cpu, name))
+
+
+def test_ingest_device_batch_on_cuda_equals_host_ingest(cuda):
+    """ingest_device_batch on the card (K1-K3, the run, the merge, the
+    2x retry of a row over the capacity) gives the rows and per-song
+    counts of host ingest on the card."""
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.ops.cuda import compact
+
+    songs = [(f"s{i}", synth_song(i, 10.0, seed=4)) for i in range(6)]
+    x = np.zeros((6, 1 << 19), np.float32)
+    for i, (_n, s) in enumerate(songs):
+        x[i, : len(s)] = s
+    nv = [len(s) for _n, s in songs]
+    host, dev = SIA(device=cuda), SIA(device=cuda, device_resident=True)
+    n = compact.KERNEL.launches
+    peaks = [int(host._fingerprint_channel(s).n_peaks) for _n, s in songs]
+    cap = sorted(peaks)[-2] + 1     # the row with the most peaks retries
+    stats = dev.ingest_device_batch([n_ for n_, _s in songs],
+                                    torch.from_numpy(x).to(cuda), nv,
+                                    song_peak_capacity=cap)
+    assert stats["ingested"] == 6 and stats["fallbacks"] == 1
+    assert stats["merges"] == 2 and compact.KERNEL.launches > n + 6
+    hstats = host.ingest_arrays(songs, song_peak_capacity=cap)
+    assert hstats["fallbacks"] == 1
+    for name in ("key_hi", "key_lo", "key_ex", "song_id", "offset"):
+        assert np.array_equal(getattr(host.index, name),
+                              getattr(dev.index, name)), name
+    assert host.catalog.song_hashes_by_id() == dev.catalog.song_hashes_by_id()
+    clip = songs[3][1][9 * 2048:][: 5 * 44100]
+
+    def answers(sia):   # the resume keys differ: SHA-1 of name, of bytes
+        return [{k: v for k, v in r.items() if k != "file_sha1"}
+                for r in sia.recognize_clip(clip)["results"]]
+
+    assert answers(dev) == answers(host)
+    assert answers(dev)[0]["song_name"] == "s3"

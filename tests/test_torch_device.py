@@ -24,6 +24,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import shazam_tpu_torch.audio.io, shazam_tpu_torch.audio.mp3\n"
         "import shazam_tpu_torch.audio.resample, shazam_tpu_torch.match.batched\n"
         "import shazam_tpu_torch.index.store, shazam_tpu_torch.profiling\n"
+        "import shazam_tpu_torch.index.devmerge, shazam_tpu_torch.index.devingest\n"
         "import shazam_tpu_torch.stream, shazam_tpu_torch.stream_device\n"
         "import shazam_tpu_torch.serve, shazam_tpu_torch.client\n"
         "import shazam_tpu_torch.cli, shazam_tpu_torch.tools.fsck\n"
@@ -31,7 +32,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "from shazam_tpu_torch.api import SIA\n"
         "for name in ('ingest_files', 'ingest_directory', 'ingest_channels',\n"
         "             'recognize_file', 'recognize_batch', 'prepare_batch',\n"
-        "             'match_prepared_batch', '_live_n_hashes'):\n"
+        "             'match_prepared_batch', '_live_n_hashes',\n"
+        "             'ingest_device_batch', '_live_n_songs'):\n"
         "    assert callable(getattr(SIA, name)), name\n"
         "shazam_tpu_torch.audio.resample.resample_channel(\n"
         "    __import__('numpy').zeros(480, 'int16'), 48000, 44100)\n"
@@ -68,6 +70,10 @@ def _sia(**kw):
     return SIA(**kw)
 
 
+def _resident_sia(**kw):
+    return _sia(device_resident=True, **kw)
+
+
 def _fingerprint(**kw):
     from shazam_tpu_torch.ops.fingerprint import fingerprint
 
@@ -96,7 +102,8 @@ def _cli_stats():
 
 
 @pytest.mark.parametrize("entry", [
-    _sia, _fingerprint, _stream_engine("IncrementalFingerprinter"),
+    _sia, _resident_sia, _fingerprint,
+    _stream_engine("IncrementalFingerprinter"),
     _stream_engine("DeviceIncrementalFingerprinter"), _cli_stats])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """No card: the default device raises instead of running on the CPU."""

@@ -169,6 +169,58 @@ def test_stale_device_copy_detected(device_sia):
     assert any("stale upload" in e for e in report["errors"])
 
 
+@pytest.fixture()
+def resident_sia(built):
+    """A device-resident copy whose store holds the built index plus one
+    song merged on the device."""
+    sia = _copy(built)
+    sia.device_resident = True
+    sia.ingest_arrays([("extra", synth_song(9, duration_s=DUR, seed=11))])
+    assert sia._dev_store is not None
+    return sia
+
+
+def test_healthy_resident_store_passes(resident_sia):
+    report = check_integrity(resident_sia)
+    assert report["ok"], report
+    assert report["checks"]["store"] == "DeviceIndex"
+    assert report["checks"]["resident"] is True
+    assert report["checks"]["index_hashes"] == report["checks"]["catalog_hashes"]
+    assert report["checks"]["capacity"] == 1 << 16
+    assert resident_sia._host_stale   # checked on the device, not synced
+
+
+def test_resident_pending_appends_warn(resident_sia):
+    """Deferred-sort appends: a warning, not an error, and the count
+    identity still holds."""
+    store = resident_sia._dev_store
+    n = store.n_valid
+    tail = tuple(c[n - 500: n].flip(0).clone() for c in store.cols)
+    store.n_valid = n - 500
+    store._sorted_rows = n - 500
+    store.append_run(tail, 500, store.n_songs, store.max_offset)
+    assert store._unsorted
+    report = check_integrity(resident_sia)
+    assert report["ok"], report
+    assert any("deferred-sort appends" in w for w in report["warnings"])
+
+
+def test_resident_corruptions_detected(resident_sia):
+    store = resident_sia._dev_store
+    n = store.n_valid
+    store.cols[0][n + 3] = 0                       # a padding row
+    store.cols[0][[0, 1]] = store.cols[0][[1, 0]].clone()
+    store.cols[2][5] = store.n_songs * store.stride + 1
+    resident_sia.catalog.update_song_hashes(
+        *(lambda sid, n: (sid, n + 2))(
+            *min(resident_sia.catalog.song_hashes_by_id().items())))
+    report = check_integrity(resident_sia)
+    assert not report["ok"]
+    for msg in ("padding rows are not sentinels", "rows are not sorted",
+                "payload max", "catalog records"):
+        assert any(msg in e for e in report["errors"]), (msg, report)
+
+
 def test_report_matches_jax(built):
     """The JAX package's fsck on the same songs: the same verdict and
     counts."""

@@ -451,6 +451,69 @@ def test_online_delete(server):
     assert code == 400
 
 
+def test_device_resident_ingest_delete_save(server, tmp_path):
+    """/ingest, /delete, /save, /stats and /metrics on a device-resident
+    SIA over the module's catalog and index (copied): the store absorbs
+    the online ingest on the device, /stats reads it without a host sync,
+    the delete syncs and drops it, and the snapshot reloads into a
+    host-backed SIA that fsck passes and that answers alike."""
+    import copy
+    import os
+
+    from shazam_tpu_torch.tools.fsck import check_integrity
+
+    def with_catalog_of(other, **kw):
+        sia = SIA(**kw)
+        sia.catalog.conn.executescript(
+            "\n".join(other.catalog.conn.iterdump()).replace(
+                "CREATE TABLE", "CREATE TABLE IF NOT EXISTS"))
+        return sia
+
+    src = server.batcher.sia
+    sia = with_catalog_of(src, device_resident=True,
+                          index=copy.deepcopy(src.index),
+                          device_reserve_hashes=1 << 17)
+    srv = RecognitionServer(sia, port=0, max_batch=4, max_wait_ms=50.0)
+    srv.start_background()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        rows0 = sia._live_n_hashes()
+        song = synth_song(66, duration_s=DUR, seed=31)
+        code, out = _post(f"{base}/ingest?name=resident", _wav_bytes(song))
+        assert code == 200 and out["ingested"] == 1, out
+        store = sia._dev_store
+        assert store is not None and sia._host_stale
+        assert store.capacity == 1 << 17
+        code, rec = _post(f"{base}/recognize",
+                          _wav_bytes(song[int(1.0 * FS): int(6.0 * FS)]))
+        assert rec["results"][0]["song_name"] == "resident"
+        with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        assert stats["index_hashes"] == rows0 + out["hashes"]
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+            assert f"sia_index_hashes {rows0 + out['hashes']}" in r.read().decode()
+        assert sia._host_stale       # neither read synced the host index
+
+        code, out = _post(f"{base}/delete?songs=s3", b"")
+        assert code == 200 and out["removed_rows"] > 100
+        assert sia._dev_store is None   # rebuilt on the host, as in JAX
+        assert sia._live_n_hashes() == stats["index_hashes"] - out["removed_rows"]
+        path = str(tmp_path / "resident.npz")
+        code, out = _post(f"{base}/save?path={path}", b"")
+        assert code == 200 and os.path.getsize(path) > 0
+        clip = _clip(1)
+        code, want = _post(f"{base}/recognize", _wav_bytes(clip))
+    finally:
+        srv.close()
+    fresh = with_catalog_of(sia)
+    fresh.load_index(path)
+    assert check_integrity(fresh)["ok"]
+    assert fresh.index.n_hashes == sia._live_n_hashes()
+    got = fresh.recognize_samples([clip])["results"][0]
+    assert (got["song_name"], got["offset"]) == (
+        want["results"][0]["song_name"], want["results"][0]["offset"])
+
+
 def test_cross_rate_request(server):
     """A 48 kHz upload is resampled to the config rate before matching
     (SIA(resample=True) default); the daemon must still identify it."""

@@ -9,6 +9,10 @@ once (the batcher's batches and the match thread's solo retries).
   distinct ticket range and epoch under 8 threads, and ends at the
   sequential base and epoch.
 - ``Kernel.launches`` counts every launch made from many threads.
+- A device-resident SIA's store merges on one thread while others take
+  its search view: every view is whole (its ``key_sub`` built from its own
+  rows) and stays so after later merges, and the rows end equal to the
+  host merge chain.
 """
 
 import threading
@@ -145,3 +149,64 @@ def test_kernel_launch_counter_across_threads():
     for t in threads:
         t.join()
     assert k.launches == 16000
+
+
+def test_store_merges_and_search_views_across_threads():
+    import numpy as np
+    import torch
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.index.devmerge import search_view_key_sub
+    from shazam_tpu_torch.index.store import FingerprintIndex, merge_into
+
+    rng = np.random.default_rng(0)
+
+    def run(n):
+        cols = [rng.integers(0, 50, n, dtype=np.uint32),
+                rng.integers(0, 1 << 32, n, dtype=np.uint32),
+                rng.integers(0, 4, n, dtype=np.uint32),
+                rng.integers(0, 30, n, dtype=np.uint32),
+                rng.integers(0, 900, n, dtype=np.uint32)]
+        order = np.lexsort(cols[::-1])
+        return FingerprintIndex(*(c[order] for c in cols), n_songs=30,
+                                max_offset=int(cols[4].max()))
+
+    sia = SIA(device="cpu", device_resident=True)
+    adds = [run(1500 + 10 * k) for k in range(12)]
+    sizes = set(np.cumsum([0] + [a.n_hashes for a in adds]).tolist())
+    views, errors = [], []
+
+    def merger():
+        for add in adds:
+            sia._absorb_addition(add)
+            time.sleep(0)
+
+    def reader():
+        try:
+            for _ in range(30):
+                views.append(sia._ensure_device_index())
+                time.sleep(0)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=merger)] + [
+        threading.Thread(target=reader) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    for v in views:
+        n = v.n_rows
+        assert n in sizes
+        ex = v.key_sub[:n] & 0xFFFF
+        assert torch.equal(v.key_sub, search_view_key_sub(
+            v.key64, ex, n, v.key64.shape[0]))
+        assert bool((v.key64[1:n] >= v.key64[:n - 1]).all())
+    host = FingerprintIndex(*(np.zeros(0, np.uint32),) * 5, n_songs=0,
+                            max_offset=0)
+    for add in adds:
+        host = merge_into(host, add)
+    got = sia.index
+    for name in ("key_hi", "key_lo", "key_ex", "song_id", "offset"):
+        assert np.array_equal(getattr(got, name), getattr(host, name)), name

@@ -50,7 +50,15 @@ Phases (each raises on failure; any failure exits non-zero):
    0.1 s, and each kernel's launch counter must have risen in this phase.
    Then ``torch.profiler`` traces the first 4 clips once more, and their
    device busy time over their unprofiled wall time gives the device's
-   idle share during ``recognize_clip``;
+   idle share during ``recognize_clip``. The same clips then go through
+   ``recognize_samples(early_exit=True)`` (the dense vote, so under
+   ``sparse_vote_threshold``: the apriori match), whose top-1 song and
+   offset must equal the full match's; on each clip's query the host loop
+   ``match_query_apriori``, the device variant
+   ``match_query_apriori_ondevice`` (what ``SIA`` takes) and the full
+   match are timed, the two variants must agree field for field and batch
+   for batch, and at least one clip must exit early. K1-K3 must launch in
+   this early-exit run;
 4. big catalog: the same SIA ingests songs 2,035-2,713 (the reference's
    2,714-song catalog), so that n_songs x delta_range passes
    ``sparse_vote_threshold`` and recognition takes the sparse ranks.
@@ -123,13 +131,26 @@ Phases (each raises on failure; any failure exits non-zero):
    ``ingest_channels`` merges a host addition into the store,
    ``delete_songs`` and ``save_index`` follow, and a fresh host-backed SIA
    from the file passes ``tools.fsck`` and answers 4 clips alike. Last,
-   the scale probe: random runs (song ids past the catalog) grow the
-   store to 2^27 = 134,217,728 rows; at the start, at 2^26 and at 2^27
-   rows one sorted 1,048,576-row run is timed (CUDA events) through
-   ``merge_device_run`` and, from the same state, ``append_run`` +
-   ``finalize`` (rows equal), then the ``query_cols()`` rebuild; the peak
-   device memory is recorded, and 8 catalog clips must answer as before.
-   Its launches pass a ``ShapeAudit`` as phase 6's do.
+   the scale probe: the host-backed SIA's uploaded index is dropped and
+   the allocator's cache emptied, then random runs (song ids past the
+   catalog) grow the store to the reference's largest deployment,
+   436,682,654 rows (capacity 2^29); at the start, at 2^26, 2^27 and 2^28
+   rows and at 436,682,654 one sorted 1,048,576-row run is timed (CUDA
+   events) through ``merge_device_run`` and, from the same state,
+   ``append_run`` + ``finalize`` (rows equal), then the ``query_cols()``
+   rebuild; the peak device memory is recorded, and 8 catalog clips must
+   answer right and as before, their p50 printed. Its launches pass a
+   ``ShapeAudit`` as phase 6's do;
+8. spans, on phase 7's catalog: ``SIA(device_span_rows=2^22)`` from the
+   host-backed SIA's index and a copy of its catalog ingests one device
+   batch of 16 new 30 s songs (16, 1,572,864); ``save_index`` writes the
+   span-wise file of the JAX package; fresh SIAs load it spanned (straight
+   onto the device store, no host sort), spanned with ``stacked=True`` and
+   plain (flattened on the host). Each must hold the spanned SIA's rows
+   and give its answers, identical and right, to 8 15 s clips (4 of the
+   new songs, 4 of phase 4's); save and load seconds are printed. K1-K3
+   must launch, and their first launch at each shape passes a
+   ``ShapeAudit``.
 
 It prints the card's name and power limit, build seconds, per-kernel
 times, ingest seconds and rows, clip latencies and the idle shares, then
@@ -217,8 +238,18 @@ RESIDENT_DENSE_S = 12.0
 RESIDENT_CLIPS = 32
 RESIDENT_BATCH_CLIPS = 8
 PROBE_RUN = 1 << 20
-PROBE_AT = (1 << 26, 1 << 27)   # rows after the timed run, past the start
-PROBE_CHUNK = 1 << 24
+# the reference's largest recorded deployment (SURVEY.md:326,
+# fingerprints_queries.sql:3): a capacity of 2^29 rows
+REFERENCE_ROWS = 436_682_654
+PROBE_AT = (1 << 26, 1 << 27, 1 << 28, REFERENCE_ROWS)   # rows after the
+PROBE_CHUNK = 1 << 24                                     # timed run
+# phase 3's early exit: the apriori batch (the JAX package's default)
+APRIORI_BATCH = 1024
+# phase 8: a spanned SIA over phase 7's catalog, one device batch of new
+# songs, its span-wise file loaded back three ways, 8 clips
+SPAN_ROWS = 1 << 22
+SPAN_SONGS = 16
+SPAN_CLIPS = 8
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
 F64_FLOP_S = 34e12      # float64 outside the tensor cores
 F32_FLOP_S = 67e12      # float32 outside the tensor cores
@@ -855,7 +886,7 @@ def _idle_share(sia, picks, clip_of, lat, on_card, label):
 def end_to_end(device, n_songs: int, n_clips: int, seed: int,
                workers: int):
     """Phase 3: ingest the synthetic catalog, recognize seeded clips.
-    Returns (the SIA, a report dict)."""
+    Returns (the SIA, [(song, frame, clip)], a report dict)."""
     import torch
 
     from shazam_tpu_torch.api import SIA
@@ -897,11 +928,91 @@ def end_to_end(device, n_songs: int, n_clips: int, seed: int,
     print(f"peak device memory allocated: {peak_mib} MiB", flush=True)
     busy, idle = _idle_share(sia, picks, clip_of, lat, on_card,
                              "recognize_clip")
-    return sia, {"songs": n_songs, "rows": rows, "ingest_wall_s": ingest_s,
-                 "ingest_s": sia_s,
-                 "clip_p50_ms": 1e3 * float(np.median(lat)),
-                 "clip_max_ms": 1e3 * max(lat), "peak_device_mib": peak_mib,
-                 "clip_device_busy_ms": busy, "clip_idle_share": idle}
+    clips = [(sid, frame, clip_of(sid, frame)) for sid, frame in picks]
+    return sia, clips, {
+        "songs": n_songs, "rows": rows, "ingest_wall_s": ingest_s,
+        "ingest_s": sia_s, "clip_p50_ms": 1e3 * float(np.median(lat)),
+        "clip_max_ms": 1e3 * max(lat), "peak_device_mib": peak_mib,
+        "clip_device_busy_ms": busy, "clip_idle_share": idle}
+
+
+def _timed_call(fn, device):
+    """(fn's result, wall ms of fn ending in a device synchronize) after one
+    untimed warm-up call: the match half is launch-bound, so the host's
+    launch time is part of what it costs."""
+    fn()
+    _sync(device)
+    t = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def early_exit(sia, clips) -> dict:
+    """Phase 3's clips again with ``recognize_samples(early_exit=True)``:
+    the top-1 song and offset must equal the full match's and be right.
+    Then the match half alone on each clip's prepared query: the host loop
+    (``match_query_apriori``, a read-back per batch), the device variant
+    (``match_query_apriori_ondevice``, the flag read at batches 1, 2, 4,
+    ...; what ``SIA`` routes to) and the full match (``_match_prepared``),
+    each timed; the two apriori variants must agree field for field and
+    batch for batch, and at least one clip must exit early."""
+    from shazam_tpu_torch.match.apriori import (match_query_apriori,
+                                                match_query_apriori_ondevice)
+    from shazam_tpu_torch.match.prepare import prepare_query
+
+    dev = sia.device
+    index = sia._ensure_device_index()
+    ms = {"early_exit_samples": [], "full_samples": [], "host_loop": [],
+          "device": [], "full": []}
+    used = total = exits = 0
+    for sid, frame, c in clips:
+        full, ms_full = _timed_call(lambda: sia.recognize_samples([c]), dev)
+        fast, ms_fast = _timed_call(
+            lambda: sia.recognize_samples([c], early_exit=True), dev)
+        a, b = _answer(full), _answer(fast)
+        if ((a["song_id"], a["offset"]) != (b["song_id"], b["offset"])
+                or not _right(fast, sid, frame * HOP / FS)):
+            raise AssertionError(f"early exit on the clip of {sid}: {b}, "
+                                 f"the full match {a}")
+        ms["full_samples"].append(ms_full)
+        ms["early_exit_samples"].append(ms_fast)
+        q = prepare_query([sia._fingerprint_channel(c)])
+        delta_min, delta_range = sia._delta_params_for(len(c))
+        kw = dict(n_songs=sia._n_songs(), delta_min=delta_min,
+                  delta_range=delta_range,
+                  match_capacity=sia.config.match_capacity,
+                  topn=sia.config.topn, batch_size=APRIORI_BATCH)
+        host, ms_host = _timed_call(lambda: match_query_apriori(index, q, **kw),
+                                    dev)
+        on_dev, ms_dev = _timed_call(
+            lambda: match_query_apriori_ondevice(index, q, **kw), dev)
+        _, ms_match = _timed_call(
+            lambda: sia._match_prepared(q, n_samples=len(c)), dev)
+        if host[1:] != on_dev[1:] or not all(
+                np.array_equal(np.asarray(x), np.asarray(y))
+                for x, y in zip(host[0], on_dev[0])):
+            raise AssertionError(f"apriori variants differ on the clip of "
+                                 f"{sid}: {host} {on_dev}")
+        ms["host_loop"].append(ms_host)
+        ms["device"].append(ms_dev)
+        ms["full"].append(ms_match)
+        n_batches = -(-q.n_pairs // APRIORI_BATCH)
+        used += on_dev[1]
+        total += n_batches
+        exits += on_dev[1] < n_batches
+    p50 = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"early exit: {len(clips)} clips of {CLIP_S} s, top-1 equal to the "
+          f"full match; batches used {used} of {total}, {exits} clips exited "
+          f"early; p50 ms: recognize_samples early exit "
+          f"{p50['early_exit_samples']:.3f} / full "
+          f"{p50['full_samples']:.3f}; match half: host loop "
+          f"{p50['host_loop']:.3f}, device variant {p50['device']:.3f}, full "
+          f"match {p50['full']:.3f}", flush=True)
+    if not exits:
+        raise AssertionError("no clip exited early")
+    return {"clips": len(clips), "batches_used": used, "batches": total,
+            "early_exits": exits, "p50_ms": p50}
 
 
 def _answer(res):
@@ -2141,16 +2252,142 @@ def device_resident(sia, big_clips, first_id: int, seed: int) -> dict:
     del fresh
 
     before = [_answer(res.recognize_clip(c)) for _s, _f, c in big_clips[:8]]
+    # the probe's peak is the store's own: drop the host-backed SIA's
+    # uploaded index and the allocator's cached blocks first
+    sia._device_index = None
+    if sia.device.type == "cuda":
+        torch.cuda.empty_cache()
     out["scale_probe"] = _scale_probe(res, seed)
-    after = [_answer(res.recognize_clip(c)) for _s, _f, c in big_clips[:8]]
+    after, lat = [], []
+    for sid, frame, c in big_clips[:8]:
+        t = time.perf_counter()
+        r = res.recognize_clip(c)
+        lat.append(1e3 * (time.perf_counter() - t))
+        if not _right(r, sid, frame * HOP / FS):
+            raise AssertionError(f"clip of {sid} wrong at {PROBE_AT[-1]} "
+                                 f"rows: {r['results'][:1]}")
+        after.append(_answer(r))
     if not all(_same_answer(a, b) for a, b in zip(before, after)):
         raise AssertionError(f"answers changed at {PROBE_AT[-1]} rows: "
                              f"{before[:2]} {after[:2]}")
-    print(f"8 catalog clips at {PROBE_AT[-1]} rows: answers unchanged",
-          flush=True)
+    out["probe_clips"] = {"answers": after, "ms": lat,
+                          "p50_ms": float(np.median(lat))}
+    print(f"8 catalog clips at {PROBE_AT[-1]} rows: answers right and "
+          f"unchanged, recognize_clip p50 {np.median(lat):.3f} ms, max "
+          f"{max(lat):.3f} ms", flush=True)
     res._dev_store = None
     del res, store
     if sia.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def spans(sia, big_clips, first_id: int) -> dict:
+    """Phase 8 on phase 7's catalog: ``SIA(device_span_rows=SPAN_ROWS)``
+    from the same index and a copy of the catalog ingests one device batch
+    of SPAN_SONGS new songs, ``save_index`` writes the span-wise file, and
+    fresh SIAs load it spanned (straight onto the store), spanned with
+    ``stacked=True`` and plain (flattened on the host): each must hold the
+    spanned SIA's rows and give its answers, identical, to SPAN_CLIPS
+    clips (half of the new songs, half of phase 4's). Save and load
+    seconds are recorded."""
+    import tempfile
+
+    import torch
+
+    from shazam_tpu_torch.api import SIA
+
+    out = {}
+    dev = sia.device
+    ids = list(range(first_id, first_id + SPAN_SONGS))
+    with mp.get_context("spawn").Pool(os.cpu_count() or 1) as pool:
+        songs = dict(zip(ids, pool.map(_song, ids)))
+        pool.close()
+        pool.join()
+
+    t = time.perf_counter()
+    sp = SIA(index=sia.index, device_span_rows=SPAN_ROWS, device=dev)
+    sia.catalog.conn.backup(sp.catalog.conn)
+    sp._ensure_dev_store()
+    _sync(dev)
+    out["from_host_s"] = time.perf_counter() - t
+    mat = np.zeros((SPAN_SONGS, 6 << 18), np.int16)
+    for r, i in enumerate(ids):
+        mat[r, : len(songs[i])] = songs[i]
+    x = torch.from_numpy(mat).to(dev).to(torch.float32)
+    _sync(dev)
+    t = time.perf_counter()
+    st = sp.ingest_device_batch([f"song{i:05d}" for i in ids], x,
+                                [len(songs[i]) for i in ids])
+    _sync(dev)
+    out["ingest_ms"] = 1e3 * (time.perf_counter() - t)
+    if st["ingested"] != SPAN_SONGS or st["overflowed"]:
+        raise AssertionError(f"spanned ingest_device_batch: {st}")
+    rows = sp.index
+
+    clip_len = int(BIG_CLIP_S * FS)
+    max_frame = (int(30.0 * FS) - clip_len) // HOP
+    jobs = [(i, f, songs[i][f * HOP: f * HOP + clip_len]) for i, f in
+            zip(ids, np.random.default_rng(first_id).integers(
+                0, max_frame + 1, SPAN_CLIPS // 2).tolist())]
+    jobs += list(big_clips[: SPAN_CLIPS - len(jobs)])
+    sias = {"spanned": sp}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spanned.npz")
+        t = time.perf_counter()
+        sp.save_index(path)
+        out["save_s"] = time.perf_counter() - t
+        out["file_mb"] = os.path.getsize(path) / 1e6
+        with np.load(path) as z:
+            n_spans = sum(k.endswith("_hi") for k in z.files)
+            meta = z["spanned_meta"].tolist()
+        if n_spans != -(-rows.n_hashes // SPAN_ROWS) or meta[0] != SPAN_ROWS:
+            raise AssertionError(f"span-wise file: {n_spans} spans, {meta}")
+        out["load_s"] = {}
+        for label, span_rows, kw in (("loaded", SPAN_ROWS, {}),
+                                     ("stacked", SPAN_ROWS, {"stacked": True}),
+                                     ("plain", 0, {})):
+            s2 = SIA(device_span_rows=span_rows, device=dev)
+            sp.catalog.conn.backup(s2.catalog.conn)
+            t = time.perf_counter()
+            s2.load_index(path, **kw)
+            if span_rows and not (s2._dev_store is not None
+                                  and s2._host_stale):
+                raise AssertionError(f"{label}: not loaded onto the store")
+            s2._ensure_device_index()
+            _sync(dev)
+            out["load_s"][label] = time.perf_counter() - t
+            sias[label] = s2
+    same_rows = {k: _rows_equal(s_.index, rows) for k, s_ in sias.items()}
+    answers, p50 = {}, {}
+    for label, s_ in sias.items():
+        lat = []
+        answers[label] = []
+        for sid, frame, c in jobs:
+            t = time.perf_counter()
+            r = s_.recognize_clip(c)
+            lat.append(1e3 * (time.perf_counter() - t))
+            if not _right(r, sid, frame * HOP / FS):
+                raise AssertionError(f"{label} SIA: clip of {sid} wrong: "
+                                     f"{r['results'][:1]}")
+            answers[label].append(_answer(r))
+        p50[label] = float(np.median(lat))
+    identical = {k: v == answers["spanned"] for k, v in answers.items()}
+    print(f"spans: {rows.n_hashes} rows in {n_spans} spans of {SPAN_ROWS}; "
+          f"from_host {out['from_host_s']:.3f} s, ingest_device_batch of "
+          f"{SPAN_SONGS} songs {out['ingest_ms']:.3f} ms; save_index "
+          f"{out['save_s']:.3f} s ({out['file_mb']:.1f} MB); load_index "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in out["load_s"].items())
+          + f"; rows equal {same_rows}; {len(jobs)} clips right, answers "
+          f"identical {identical}; recognize_clip p50 ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in p50.items()), flush=True)
+    if not (all(same_rows.values()) and all(identical.values())):
+        raise AssertionError("spanned round trip differs")
+    out.update(rows=rows.n_hashes, spans=n_spans, clip_p50_ms=p50)
+    for s_ in sias.values():
+        s_._dev_store = None
+        s_._device_index = None
+    if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
 
@@ -2221,8 +2458,10 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernels not launched by {label}: {idle}")
         return out, counts
 
-    (sia, e2e), launches = launched("main path", lambda: end_to_end(
+    (sia, e2e_clips, e2e), launches = launched("main path", lambda: end_to_end(
         device, args.songs, args.clips, args.seed, workers))
+    early, launches_early = launched("early exit", lambda: early_exit(
+        sia, e2e_clips))
     (big_clips, big), launches_big = launched("big catalog", lambda: big_catalog(
         sia, args.songs, args.big_songs, args.big_clips, CHECKED_CLIPS,
         args.seed, workers))
@@ -2247,6 +2486,20 @@ def main(argv=None) -> int:
 
     resident_out, launches_resident = launched("device resident", resident)
 
+    def spanned():
+        with ShapeAudit(sia.config) as audit:
+            out = spans(sia, big_clips, args.big_songs + args.file_songs + 2
+                        + RESIDENT_BATCHES * RESIDENT_BATCH + 1)
+        out["twin_audit"] = audit.check()
+        print("phase 8's first launch at each shape equal to its plain twin "
+              "(K1 in dB): " + "; ".join(
+                  f"{name} at {[k for k, _ in v]}, max err "
+                  f"{max((e for _, e in v), default=0)}"
+                  for name, v in out["twin_audit"].items()), flush=True)
+        return out
+
+    spans_out, launches_spans = launched("spans", spanned)
+
     report = []
     for name, source, replaces in KERNELS:
         m = measured[name]
@@ -2254,10 +2507,12 @@ def main(argv=None) -> int:
         report.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_early_exit": launches_early[name],
             "launches_big_catalog": launches_big[name],
             "launches_files_batches": launches_files[name],
             "launches_serve_stream": launches_serve[name],
             "launches_device_resident": launches_resident[name],
+            "launches_spans": launches_spans[name],
             "max_abs_err": max(r["err"] for r in m.values()),
             **{k: m["ingest"][k] for k in (
                 "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
@@ -2266,9 +2521,11 @@ def main(argv=None) -> int:
         })
     print(f"whole run {time.perf_counter() - t0:.3f} s", flush=True)
     print(json.dumps({"kernels": report, "end_to_end": e2e,
+                      "early_exit": early,
                       "big_catalog": big, "files_and_batches": files,
                       "serve_and_stream": served,
-                      "device_resident": resident_out}),
+                      "device_resident": resident_out, "spans": spans_out},
+                     default=str),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,15 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   results equal ``recognize_samples`` on each clip alone.
 - ``save_index``/``load_index``: the JAX package's flat ``.npz`` format;
   ``load_index`` also reads its span-wise files, flattened on the host.
+- ``SIA(device_span_rows=N)``: the JAX package's spanned store as its API
+  and file format over the flat device store: ``save_index`` writes the
+  span-wise format, ``load_index`` uploads such a file straight into the
+  store (``stacked=True`` gives the same store), ``consolidate_index`` has
+  nothing to stack.
+- ``recognize_samples`` / ``recognize_file(early_exit=True)``: the
+  reference's apriori early exit (``match/apriori.py``) under
+  ``sparse_vote_threshold``; past it, or on a spanned SIA, a warning and
+  the full match, as in the JAX package.
 - ``SIA(device_resident=True)``: the index lives in a device store
   (``index/devmerge.DeviceIndex``) that absorbs every addition on the
   device, so ingest makes no host merge and queries no re-upload; the
@@ -45,7 +54,7 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
 
 The serving daemon (``serve.py``) and streaming recognition
 (``stream.py``, ``stream_device.py``) sit on top of this class. Not ported
-yet: the spanned store, the unique-view search, apriori.
+yet: the unique-view search and the bucket head.
 
 Shapes are bucketed (padded to the next 2^18-sample multiple), as in the
 JAX package, so both packages see the same frame counts.
@@ -57,6 +66,7 @@ import hashlib
 import os
 import threading
 import time
+import warnings
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,10 +79,12 @@ from .device import resolve_device
 from .index.catalog import SongCatalog
 from .index.devingest import device_sorted_run
 from .index.devmerge import (DeviceIndex as DeviceStore, capacity_for,
-                             is_spanned_file, load_spanned_flat,
-                             packed_stride_for)
+                             check_spanned, is_spanned_file, load_spanned,
+                             load_spanned_flat, packed_stride_for,
+                             save_spanned)
 from .index.store import DeviceIndex, FingerprintIndex, build_index, merge_into
 from .match.align import align_results
+from .match.apriori import match_query_apriori_ondevice
 from .match.batched import (batched_raw_to_host, match_queries_batched,
                             query_totals_batched)
 from .match.lookup import RawMatch, match_by_rank, query_total, raw_to_host
@@ -183,20 +195,30 @@ class SIA:
     (``index/devmerge.DeviceIndex``) that absorbs every ingest on the
     device; ``device_reserve_hashes`` preallocates its capacity. The host
     index is then synced from the store when read.
+    ``device_span_rows=N`` implies it and makes the SIA spanned, as in the
+    JAX package: ``save_index`` writes the span-wise format in chunks of N
+    rows, ``load_index`` uploads such files straight into the store, and
+    the store refuses what the JAX package's spanned store refuses (checked
+    on first device use). The store itself stays one flat sorted run.
+
+    The parameters are the JAX package's, in its order; ``device`` is the
+    port's own.
     """
 
     def __init__(self, config: FingerprintConfig = DEFAULT_CONFIG,
                  catalog_path: str = ":memory:",
-                 index: Optional[FingerprintIndex] = None, device="cuda",
-                 resample: bool = True, device_resident: bool = False,
-                 device_reserve_hashes: int = 0):
+                 index: Optional[FingerprintIndex] = None,
+                 device_resident: bool = False,
+                 device_reserve_hashes: int = 0, device_span_rows: int = 0,
+                 resample: bool = True, *, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
         self.resample = resample
         self.catalog = SongCatalog(catalog_path)
         self.catalog.delete_unfingerprinted()  # reference crash recovery
-        self.device_resident = device_resident
+        self.device_resident = device_resident or bool(device_span_rows)
         self.device_reserve_hashes = device_reserve_hashes
+        self.device_span_rows = device_span_rows
         self.index = index or build_index([], n_songs=0)
         self._max_off = 0
         # self-tuning decide tier (config.decide_adapt_window): [attempts,
@@ -244,6 +266,10 @@ class SIA:
         """The device store, built from the host index on first use."""
         with self._upload_lock:
             if self._dev_store is None:
+                if self.device_span_rows:
+                    ix = self.index
+                    check_spanned(self.device_span_rows, ix.n_songs,
+                                  ix.max_offset, ix.n_hashes)
                 self._dev_store = DeviceStore.from_host(
                     self.index, reserve=self.device_reserve_hashes,
                     device=self.device)
@@ -255,7 +281,14 @@ class SIA:
         query), or, device-resident, into the store on the device."""
         with self._upload_lock:
             if self.device_resident:
-                self._ensure_dev_store().merge(addition)
+                store = self._ensure_dev_store()
+                if self.device_span_rows:
+                    check_spanned(
+                        self.device_span_rows,
+                        max(store.n_songs, addition.n_songs),
+                        max(store.max_offset, addition.max_offset),
+                        addition.n_hashes)
+                store.merge(addition)
                 self._host_stale = True
             else:
                 self.index = merge_into(self.index, addition)
@@ -267,7 +300,7 @@ class SIA:
                          extensions: Sequence[str] = (".wav",),
                          limit: Optional[float] = None, batch_size: int = 8,
                          song_peak_capacity: Optional[int] = None,
-                         verbose: bool = False,
+                         verbose: bool = False, *,
                          merge_chunk_hashes: int = 4_000_000) -> Dict:
         """Fingerprint every matching file under ``path`` into the index,
         in sorted path order. Resumable: files whose SHA-1 is already
@@ -787,12 +820,20 @@ class SIA:
                 cap *= 2
 
     def recognize_samples(self, channels: Sequence[np.ndarray],
-                          topn: Optional[int] = None) -> Dict:
+                          topn: Optional[int] = None,
+                          early_exit: bool = False,
+                          q_pad_to: Optional[int] = None) -> Dict:
         """Recognize decoded audio channels (two passes: fingerprint, then
         host dedup + match with capacity tiers).
 
         Returns the reference's result schema plus fingerprint/query/align
         stage times (``recognizer_test.py:607-610``).
+
+        ``early_exit=True`` matches in batches of query pairs and stops
+        once the leader has twice the runner-up's matched hashes, the
+        reference's apriori rule (``match/apriori.py``); its counts then
+        reflect the partial scan. ``q_pad_to`` raises the query padding
+        (never lowers it); results are the same at any padding.
         """
         t0 = time.time()
         channels = [np.asarray(ch) for ch in channels if len(ch)]
@@ -805,11 +846,14 @@ class SIA:
             }
         fps = [self._fingerprint_channel(ch) for ch in channels]
         q = prepare_query(fps)
+        if q_pad_to is not None and q_pad_to > len(q.hi):
+            q = prepare_query(fps, pad_to=q_pad_to)
         fingerprint_time = time.time() - t0
 
         t0 = time.time()
         raw, cap_used = self._match_prepared(
-            q, n_samples=max(len(ch) for ch in channels), topn=topn)
+            q, n_samples=max(len(ch) for ch in channels), topn=topn,
+            early_exit=early_exit)
         query_time = time.time() - t0
 
         t0 = time.time()
@@ -829,6 +873,7 @@ class SIA:
         }
 
     def _match_prepared(self, q, n_samples: int, topn: Optional[int] = None,
+                        early_exit: bool = False,
                         min_capacity: Optional[int] = None):
         """Match prepared query pairs with capacity tiers; returns (host
         RawMatch, capacity actually used).
@@ -844,10 +889,35 @@ class SIA:
         bounds instead of searching again. ``min_capacity``: a caller that
         knows the query's exact total (a batch's clamped clip) starts at
         the tier that fits it, with no escalation policy.
+
+        ``early_exit``: the apriori match at ``match_capacity`` per batch
+        (``match_query_apriori_ondevice``), where the dense histogram it
+        accumulates exists, under ``sparse_vote_threshold``; past it, or on
+        a spanned SIA, a warning and the full match, as in the JAX package.
+        Its accumulated total may pass one batch's capacity without any
+        vote dropped, so only a batch that clamped reports the capacity.
         """
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(n_samples)
         n_songs = self._n_songs()
+        if early_exit:
+            spanned = bool(self.device_span_rows)
+            if spanned or (n_songs * delta_range
+                           > self.config.sparse_vote_threshold):
+                warnings.warn(
+                    "early_exit is unavailable for "
+                    + ("spanned stores" if spanned
+                       else "catalogs past the sparse-matcher threshold")
+                    + "; running a full match (identical top-1, but "
+                    "vote counts reflect the full scan, not a partial one)",
+                    stacklevel=3)
+            else:
+                cap = self.config.match_capacity
+                raw, _used, clamped = match_query_apriori_ondevice(
+                    index, q, n_songs=n_songs, delta_min=delta_min,
+                    delta_range=delta_range, match_capacity=cap,
+                    topn=topn or self.config.topn)
+                return raw, cap if clamped else max(int(raw.total_rows), cap)
         q_dev = self._query_to_device({name: getattr(q, name)
                                        for name in QUERY_COLUMNS})
         caps = self._match_tiers()
@@ -1130,7 +1200,8 @@ class SIA:
         }
 
     def recognize_file(self, path: str, limit: Optional[float] = None,
-                       topn: Optional[int] = None) -> Dict:
+                       topn: Optional[int] = None,
+                       early_exit: bool = False) -> Dict:
         """Decode an audio file (resampled to ``config.sample_rate`` when
         ``resample``, else a ``ValueError`` at another rate) and recognize
         its channels with ``recognize_samples``."""
@@ -1140,10 +1211,12 @@ class SIA:
                 raise ValueError(
                     f"{path}: sample rate {fs} != {self.config.sample_rate}")
             channels = resample_channels(channels, fs, self.config.sample_rate)
-        return self.recognize_samples(channels, topn=topn)
+        return self.recognize_samples(channels, topn=topn,
+                                      early_exit=early_exit)
 
     def recognize_batch(self, clips: Sequence[np.ndarray],
                         topn: Optional[int] = None, pad_to_pow2: bool = False,
+                        q_pad_to: Optional[int] = None,
                         match_capacity: Optional[int] = None) -> List[Dict]:
         """Recognize many mono clips: one fingerprint batch and one match
         dispatch for all of them; per-clip results equal
@@ -1152,12 +1225,14 @@ class SIA:
         the batch's ``batch_*`` times beside the amortized per-clip ones.
 
         ``pad_to_pow2`` rounds the batch up to a power of two with empty
-        rows, which produce no output. ``match_capacity`` overrides the
+        rows, which produce no output. ``q_pad_to`` raises the stack's
+        query padding (never lowers it). ``match_capacity`` overrides the
         base dispatch tier; results are the same, since per-clip
         escalation still runs. ``prepare_batch`` then
         ``match_prepared_batch``.
         """
         pb = self.prepare_batch(clips, topn=topn, pad_to_pow2=pad_to_pow2,
+                                q_pad_to=q_pad_to,
                                 match_capacity=match_capacity)
         if pb is None:
             return []
@@ -1165,6 +1240,7 @@ class SIA:
 
     def prepare_batch(self, clips: Sequence[np.ndarray],
                       topn: Optional[int] = None, pad_to_pow2: bool = False,
+                      q_pad_to: Optional[int] = None,
                       match_capacity: Optional[int] = None
                       ) -> Optional[_PreparedBatch]:
         """Stage 1 of ``recognize_batch``: fingerprint the clips as one
@@ -1192,6 +1268,8 @@ class SIA:
                    else prepare_query([Fingerprints(*(a[i] for a in fp))])
                    for i in range(n_clips)]
         q_cap = max(len(q.hi) for q in queries)
+        if q_pad_to is not None:
+            q_cap = max(q_cap, q_pad_to)
         stack = {name: np.stack([np.pad(getattr(q, name),
                                         (0, q_cap - len(q.hi)))
                                  for q in queries])
@@ -1378,18 +1456,47 @@ class SIA:
                     max_offset=int(offset.max()) if len(offset) else 0)
         return removed
 
+    def consolidate_index(self) -> None:
+        """The JAX package stacks a spanned store into its serving layout
+        here and closes it to ingest. The port's store is one flat sorted
+        run, already searched in one round, so there is nothing to stack
+        and the store stays open to ingest."""
+
     def save_index(self, path: str) -> None:
-        """Persist the index as the flat sorted ``.npz`` both packages read
+        """Persist the index. A spanned SIA's live store writes the span-
+        wise format of the JAX package (``index/devmerge.save_spanned``);
+        everything else writes the flat sorted ``.npz`` both packages read
         (a device store is synced to the host first)."""
+        if self.device_span_rows and self._dev_store is not None:
+            with self._upload_lock:
+                save_spanned(self._dev_store, path, self.device_span_rows)
+            return
         self.index.save(path)
 
-    def load_index(self, path: str) -> None:
-        """Load a flat ``.npz`` index, or the JAX package's span-wise one
-        flattened on the host (``index/devmerge.load_spanned_flat``), then
-        restore the catalog invariant (fingerprinted flag <=> hash rows
-        present). A device-resident SIA uploads it into a new store on the
-        next query."""
+    def load_index(self, path: str, stacked: bool = False) -> None:
+        """Load a flat ``.npz`` index or a span-wise one, then restore the
+        catalog invariant (fingerprinted flag <=> hash rows present).
+
+        A spanned SIA uploads a span-wise file straight into its store
+        (``index/devmerge.load_spanned``: no host sort) and reconciles the
+        catalog only when its hash total differs from the store's rows,
+        as the JAX package does; any other SIA flattens the file on the
+        host. ``stacked=True``, the JAX package's stacked serving layout,
+        loads the same store here. A flat file into a device-resident SIA
+        is uploaded on the next query."""
         if is_spanned_file(path):
+            if self.device_span_rows:
+                with self._upload_lock:
+                    # the span minimum; a span-wise file's payload packs
+                    check_spanned(self.device_span_rows, 0, 0, 0)
+                    store = load_spanned(path, self.device,
+                                         reserve=self.device_reserve_hashes)
+                    self.index = build_index([], n_songs=0)
+                    self._dev_store = store
+                    self._host_stale = True
+                if self.catalog.counts()["n_hashes"] != store.n_valid:
+                    self._reconcile_catalog()   # a torn restart only
+                return
             self.index = load_spanned_flat(path)
         else:
             self.index = FingerprintIndex.load(path)

@@ -23,8 +23,9 @@ import sys
 
 
 def load_config(path: str):
-    """A ``FingerprintConfig`` from a JSON file of its fields. A field the
-    port does not have is refused, not silently ignored."""
+    """A ``FingerprintConfig`` from a JSON file of its fields, such as the
+    JAX package's ``to_json()``. A field the port does not have, or a
+    value it cannot honor, is refused, not silently ignored."""
     from .config import FingerprintConfig
 
     with open(path) as fh:
@@ -33,7 +34,10 @@ def load_config(path: str):
     unknown = sorted(set(fields) - known)
     if unknown:
         sys.exit(f"{path}: fields the port does not honor: {unknown}")
-    return FingerprintConfig(**fields)
+    try:
+        return FingerprintConfig(**fields)
+    except ValueError as e:
+        sys.exit(f"{path}: {e}")
 
 
 def _open_sia(args, need_index: bool):
@@ -42,8 +46,9 @@ def _open_sia(args, need_index: bool):
 
     config = load_config(args.config) if args.config else FingerprintConfig()
     sia = SIA(config=config, catalog_path=args.db + ".sqlite",
-              device=args.device,
-              device_resident=getattr(args, "device_resident", False))
+              device_resident=getattr(args, "device_resident", False),
+              device_span_rows=getattr(args, "span_rows", 0) or 0,
+              device=args.device)
     index_path = args.db + ".npz"
     if os.path.exists(index_path):
         sia.load_index(index_path)
@@ -67,7 +72,8 @@ def cmd_ingest(args):
 
 def cmd_recognize(args):
     sia = _open_sia(args, need_index=True)
-    out = sia.recognize_file(args.file, limit=args.limit, topn=args.topn)
+    out = sia.recognize_file(args.file, limit=args.limit, topn=args.topn,
+                             early_exit=args.early_exit)
     print(json.dumps(out, default=str, indent=2))
     if out["results"]:
         top = out["results"][0]
@@ -134,6 +140,8 @@ def cmd_serve(args):
     from .serve import RecognitionServer, warmup
 
     sia = _open_sia(args, need_index=True)
+    if args.consolidate:
+        sia.consolidate_index()
     if args.warmup:
         print("warming serving paths...", flush=True)
         extra = [float(s) for s in args.warm_lengths.split(",") if s] \
@@ -194,14 +202,23 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device-resident", action="store_true",
                    help="merge fingerprints into an index held on the "
                         "device (index/devmerge.py): no host merges")
+    s.add_argument("--span-rows", type=int, default=0,
+                   help="a spanned index (implies --device-resident): "
+                        "saved span-wise in chunks of this many rows, the "
+                        "JAX package's format")
     s.set_defaults(fn=cmd_ingest)
 
     s = sub.add_parser("recognize", help="identify one audio file")
     s.add_argument("file")
     s.add_argument("--limit", type=float, default=None)
     s.add_argument("--topn", type=int, default=2)
+    s.add_argument("--early-exit", action="store_true",
+                   help="stop matching once the leader has twice the "
+                        "runner-up's matched hashes (match/apriori.py)")
     s.add_argument("--device-resident", action="store_true",
                    help="serve the index from a device store")
+    s.add_argument("--span-rows", type=int, default=0,
+                   help="a spanned index (implies --device-resident)")
     s.set_defaults(fn=cmd_recognize)
 
     s = sub.add_parser("stats", help="dump per-song hash stats CSV")
@@ -283,6 +300,13 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device-resident", action="store_true",
                    help="serve the index from a device store: online "
                         "ingests merge on the device")
+    s.add_argument("--span-rows", type=int, default=0,
+                   help="a spanned index (implies --device-resident): "
+                        "/save writes it span-wise")
+    s.add_argument("--consolidate", action="store_true",
+                   help="the JAX package's stacked serving layout; the "
+                        "port's store is already one search round, so "
+                        "this changes nothing and ingest stays open")
     s.set_defaults(fn=cmd_serve)
 
     s = sub.add_parser("synth", help="generate a deterministic WAV corpus")

@@ -1,17 +1,28 @@
 """Fingerprinting configuration: the knobs the port reads.
 
 Each field has the name and default of the same field of
-``shazam_tpu.config.FingerprintConfig`` (a test holds them equal). The
-port does not import that class: ``chip_smoke.py`` drives the port on
+``shazam_tpu.config.FingerprintConfig``, in its order (a test holds them
+equal), so that a config file either package writes loads in the other.
+The port does not import that class: ``chip_smoke.py`` drives the port on
 the card and imports nothing of the JAX package, so neither may the port.
-Only the fields the port honours are here; the JAX package's serving,
-streaming and layout knobs have no counterpart yet, and a field that the
-port would silently ignore is left out.
+Five fields describe choices the port cannot vary (``FIXED``): they are
+accepted at the JAX package's default and refused at any other value,
+rather than silently ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+from typing import Any
+
+# fields the port takes only at the JAX package's default (no code of the
+# JAX package outside its config reads them either): the full-square peak
+# footprint, the peak sort, the 80-bit key, a per-channel hash capacity and
+# the f32 spectrogram output
+FIXED = {"connectivity_mask": 2, "peak_sort": True,
+         "fingerprint_reduction": 20, "hash_capacity": 32768,
+         "spectrogram_dtype": "float32"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,12 +36,16 @@ class FingerprintConfig:
     # --- constellation peaks ---
     amp_min: float = 10.0             # DEFAULT_AMP_MIN (dB, strict >)
     peak_neighborhood_size: int = 10  # PEAK_NEIGHBORHOOD_SIZE
+    connectivity_mask: int = 2        # CONNECTIVITY_MASK (FIXED)
+    peak_sort: bool = True            # PEAK_SORT (FIXED)
     # --- hash pairing ---
     fan_value: int = 5                # anchor pairs with the next fan-1 peaks
     min_hash_time_delta: int = 0      # frames
     max_hash_time_delta: int = 200    # frames
+    fingerprint_reduction: int = 20   # hex chars kept = 80 bits (FIXED)
     # --- static capacities (overflow is detected, never silent) ---
     peak_capacity: int = 8192         # max constellation peaks per channel
+    hash_capacity: int = 32768        # (FIXED)
     # expanded (row x query-offset) vote entries: queries run at
     # match_capacity_fast first and escalate through the tiers up to
     # match_capacity_max when the exact match count overflows
@@ -74,8 +89,15 @@ class FingerprintConfig:
     sparse_vote_threshold: int = 16_000_000
     # --- matching / results ---
     topn: int = 2                     # TOPN (recognizer.py:68)
+    # --- numerics ---
+    spectrogram_dtype: str = "float32"  # (FIXED)
 
     def __post_init__(self) -> None:
+        for name, default in FIXED.items():
+            if getattr(self, name) != default:
+                raise ValueError(
+                    f"{name}={getattr(self, name)!r}: the port takes only "
+                    f"the JAX package's default {default!r}")
         if self.window_size & (self.window_size - 1):
             raise ValueError("window_size must be a power of two")
         if not (0.0 <= self.overlap_ratio < 1.0):
@@ -96,6 +118,22 @@ class FingerprintConfig:
         """Samples between adjacent STFT frames (wsize - noverlap)."""
         return self.window_size - int(self.window_size * self.overlap_ratio)
 
+    @property
+    def n_freqs(self) -> int:
+        """One-sided FFT bin count."""
+        return self.window_size // 2 + 1
+
+    @property
+    def neighborhood_width(self) -> int:
+        """Side of the square local-max footprint (21 for the defaults)."""
+        return 2 * self.peak_neighborhood_size + 1
+
+    def num_frames(self, n_samples: int) -> int:
+        """STFT frame count for an n_samples signal (mlab.specgram layout)."""
+        if n_samples < self.window_size:
+            return 0
+        return (n_samples - self.window_size) // self.hop + 1
+
     def frames_to_seconds(self, offset_frames: float) -> float:
         """Reference ``recognizer.py:318`` offset -> seconds conversion."""
         return round(
@@ -105,6 +143,17 @@ class FingerprintConfig:
             * self.overlap_ratio,
             5,
         )
+
+    # ---- (de)serialization: the JAX package's JSON config files ----
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "FingerprintConfig":
+        return cls(**json.loads(text))
+
+    def replace(self, **kwargs: Any) -> "FingerprintConfig":
+        return dataclasses.replace(self, **kwargs)
 
 
 DEFAULT_CONFIG = FingerprintConfig()

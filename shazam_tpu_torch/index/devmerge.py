@@ -39,9 +39,16 @@ positions, so every merge, append or finalize invalidates it;
 ``query_cols()`` rebuilds it on the device (first-of-run flags, a
 prefix sum, a scatter and a gather) and caches it until the next change.
 
-The span-wise file format of the JAX package's ``SpannedDeviceStore``
-(``is_spanned_file``, ``load_spanned_flat``) is read here too, flattened on
-the host: the spanned store itself is not ported.
+Spans. The JAX package's ``SpannedDeviceStore`` holds the index as many
+bounded sorted spans, because its TPU worker killed long device programs
+and its HBM was 16 GB. On an 80 GB card one flat store holds the
+reference's largest deployment (436,682,654 rows), so the port keeps the
+spans' API and file format over this flat store: ``save_spanned`` writes
+the sorted rows in the span-wise format, ``load_spanned`` uploads such a
+file straight into a store (the device sorts it only when its spans
+overlap, as the JAX package's do), ``load_spanned_flat`` flattens one on
+the host, and ``check_spanned`` refuses what ``SpannedDeviceStore``
+refuses.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ import numpy as np
 import torch
 
 from . import store
-from .store import FingerprintIndex, offset_stride_for
+from .store import FingerprintIndex, atomic_savez, offset_stride_for
 
 SENTINEL = np.iinfo(np.int64).max
 MIN_CAPACITY = 1 << 16
@@ -79,6 +86,33 @@ def packed_stride_for(max_offset: int, n_songs: int) -> int:
     same, so that both packages accept the same ones."""
     stride = offset_stride_for(max_offset)
     return stride if max(n_songs, 1) * stride <= (1 << 32) else 0
+
+
+def check_spanned(span_rows: int, n_songs: int, max_offset: int,
+                  n_rows: int) -> None:
+    """Refuse what the JAX package's ``SpannedDeviceStore`` refuses, with
+    its errors: spans under ``MIN_CAPACITY // 16`` rows, and a non-empty
+    catalog whose (song, offset) payload does not pack into the uint32
+    ``pp`` column of the span-wise file."""
+    if span_rows < MIN_CAPACITY // 16:
+        raise ValueError(f"span_rows {span_rows} is below the minimum "
+                         f"{MIN_CAPACITY // 16}")
+    if n_rows and not packed_stride_for(max_offset, n_songs):
+        raise ValueError(
+            f"catalog ({n_songs} songs x offset {max_offset}) exceeds the "
+            "packed uint32 payload; a spanned store requires the packed "
+            "payload layout")
+
+
+def rows_sorted(key64: torch.Tensor, ex: torch.Tensor,
+                payload: torch.Tensor) -> torch.Tensor:
+    """A 0-dim bool on the rows' device: are they in (key64, ex, payload)
+    order?"""
+    k, e, p = key64, ex, payload
+    if k.shape[0] < 2:
+        return torch.ones((), dtype=torch.bool, device=k.device)
+    return torch.all((k[1:] > k[:-1]) | ((k[1:] == k[:-1]) & (
+        (e[1:] > e[:-1]) | ((e[1:] == e[:-1]) & (p[1:] >= p[:-1])))))
 
 
 def empty_cols(cap: int, device) -> Cols:
@@ -333,22 +367,77 @@ class DeviceIndex:
                 payload, self.n_valid, self.stride)
         return self._view
 
-    def to_host(self) -> FingerprintIndex:
-        """The rows as a host ``FingerprintIndex`` (pending appends are
-        sorted in first)."""
+    def _host_rows(self):
+        """The sorted rows on the host (pending appends sorted in first):
+        (hi, lo, ex) uint32 and the int64 payload."""
         self.finalize()
         key64, ex, payload = (c[: self.n_valid].cpu().numpy()
                               for c in self.cols)
         k = key64.view(np.uint64) ^ _SIGN
+        return ((k >> np.uint64(32)).astype(np.uint32),
+                (k & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                ex.astype(np.uint32), payload)
+
+    def to_host(self) -> FingerprintIndex:
+        """The rows as a host ``FingerprintIndex`` (pending appends are
+        sorted in first)."""
+        hi, lo, ex, payload = self._host_rows()
         return FingerprintIndex(
-            (k >> np.uint64(32)).astype(np.uint32),
-            (k & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-            ex.astype(np.uint32), (payload // self.stride).astype(np.uint32),
+            hi, lo, ex, (payload // self.stride).astype(np.uint32),
             (payload % self.stride).astype(np.uint32),
             n_songs=self.n_songs, max_offset=self.max_offset)
 
 
-# ---- the JAX package's span-wise file format, read flat -------------------
+# ---- the JAX package's span-wise file format ------------------------------
+def save_spanned(dstore: DeviceIndex, path: str, span_rows: int) -> None:
+    """Write a store in the span-wise format of the JAX package's
+    ``SpannedDeviceStore.save``: an uncompressed npz of ``spanned_meta =
+    [span_rows, stride, n_songs, max_offset]`` (int64) and
+    ``s{i:05d}_hi|lo|ex|pp`` uint32 columns (``pp = song * stride +
+    offset``), the sorted rows cut into chunks of ``span_rows`` rows, the
+    last one partial. Every chunk is sorted, which is all the format asks
+    of a span; here their concatenation is sorted too."""
+    hi, lo, ex, payload = dstore._host_rows()
+    check_spanned(span_rows, dstore.n_songs, dstore.max_offset, len(hi))
+    pp = payload.astype(np.uint32)   # packable, checked above
+    arrays = {"spanned_meta": np.array(
+        [span_rows, dstore.stride, dstore.n_songs, dstore.max_offset],
+        np.int64)}
+    for i, start in enumerate(range(0, len(hi), span_rows)):
+        for name, col in zip(_SPAN_COLUMNS, (hi, lo, ex, pp)):
+            arrays[f"s{i:05d}_{name}"] = col[start: start + span_rows]
+    atomic_savez(path, compress=False, **arrays)
+
+
+def load_spanned(path: str, device, reserve: int = 0) -> DeviceIndex:
+    """A span-wise file straight into a device store, with no host sort:
+    the spans' rows are uploaded one behind the other (payloads repacked
+    when the store's stride differs from the saved one), and only when
+    their concatenation is not sorted, as where the JAX package's spans
+    overlap in key range, does the device sort it (``finalize``)."""
+    spans = []
+    with np.load(path) as z:
+        stride, n_songs, max_off = (int(x) for x in z["spanned_meta"][1:])
+        while f"s{len(spans):05d}_hi" in z:
+            spans.append([np.asarray(z[f"s{len(spans):05d}_{n}"])
+                          for n in _SPAN_COLUMNS])
+    n = sum(len(cols[0]) for cols in spans)
+    out = empty_cols(capacity_for(max(n, reserve, 1)), device)
+    start = 0
+    for hi, lo, ex, pp in spans:
+        k = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+        for o, h in zip(out, ((k ^ _SIGN).view(np.int64), ex.astype(np.int64),
+                              pp.astype(np.int64))):
+            o[start: start + len(h)] = torch.from_numpy(h).to(device)
+        start += len(hi)
+    loaded = DeviceIndex(out, n, n_songs, max_off, max(stride, 1))
+    loaded._ensure_layout(max_off)
+    if not bool(rows_sorted(*(c[:n] for c in out))):
+        loaded._sorted_rows = 0
+        loaded.finalize()
+    return loaded
+
+
 def is_spanned_file(path: str) -> bool:
     """True when ``path`` is a span-wise ``.npz`` (the JAX package's
     ``SpannedDeviceStore.save``), not the flat ``FingerprintIndex`` one."""

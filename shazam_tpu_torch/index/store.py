@@ -69,9 +69,10 @@ def search_keys(hi: np.ndarray, lo: np.ndarray, ex: np.ndarray):
     return key64, key_sub
 
 
-def _atomic_savez(path: str, **arrays) -> None:
-    """``np.savez_compressed`` to a temp file, fsync, then atomic replace
-    (readers see the old file or the new one, never a torn write)."""
+def atomic_savez(path: str, compress: bool = True, **arrays) -> None:
+    """``np.savez_compressed`` (``np.savez`` when not ``compress``) to a
+    temp file, fsync, then atomic replace (readers see the old file or the
+    new one, never a torn write)."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
@@ -81,7 +82,7 @@ def _atomic_savez(path: str, **arrays) -> None:
         os.umask(umask)
         os.chmod(tmp, 0o666 & ~umask)
         with os.fdopen(fd, "wb") as fh:
-            np.savez_compressed(fh, **arrays)
+            (np.savez_compressed if compress else np.savez)(fh, **arrays)
             fh.flush()
             os.fsync(fh.fileno())
         os.replace(tmp, path)
@@ -139,7 +140,7 @@ class FingerprintIndex:
 
     # ---- persistence (the JAX package's .npz layout) ----
     def save(self, path: str) -> None:
-        _atomic_savez(
+        atomic_savez(
             path,
             key_hi=self.key_hi, key_lo=self.key_lo, key_ex=self.key_ex,
             song_id=self.song_id, offset=self.offset,

@@ -382,6 +382,52 @@ def sort_rank(sid, delta, first, valid, total, n_dropped, *, n_songs: int,
                     n_ranked, n_dropped, runner)
 
 
+def accumulate_votes(hist, rows_hist, sid, delta, first, valid, *,
+                     delta_min: int, live=None) -> None:
+    """Add one vote stream into a dense (n_songs, delta_range) int32 vote
+    histogram and its (n_songs,) dedup row counts, in place: the JAX
+    package's ``match_local`` summed into running totals. Out-of-window
+    deltas and ids past n_songs are dropped (``mode="drop"``). ``live``, a
+    0-dim bool on the device, gates the whole stream without a host sync:
+    when False it adds nothing."""
+    n_songs, delta_range = hist.shape
+    dbin = delta - delta_min
+    song_ok = valid & (sid >= 0) & (sid < n_songs)
+    if live is not None:
+        song_ok = song_ok & live
+    ok = song_ok & (dbin >= 0) & (dbin < delta_range)
+    hist.view(-1).index_add_(0, torch.where(ok, sid * delta_range + dbin, 0),
+                             ok.to(torch.int32))
+    row = song_ok & first
+    rows_hist.index_add_(0, torch.where(row, sid, 0), row.to(torch.int32))
+
+
+def rank_votes(hist, rows_hist, total, *, delta_min: int, topn: int,
+               n_dropped=None) -> RawMatch:
+    """The JAX package's ``rank_votes``: per-song best delta (the first
+    maximum, so the smallest delta) and the top-N with the reference's tie
+    rules, over a dense (n_songs, delta_range) histogram, plus the
+    strongest challenger of the early accept (see ``RawMatch``)."""
+    n_songs = hist.shape[0]
+    votes, best_bin = hist.max(1).values, hist.argmax(1)
+    vals, order = _desc(votes)
+    k = min(topn, n_songs)
+    top_songs, top_votes = (a[0] for a in _pad_top(order[None, :k],
+                                                   vals[None, :k], topn))
+    top_deltas = best_bin[top_songs] + delta_min
+    win = top_songs[:1]
+    top_row = hist.index_select(0, win)[0]
+    bins = torch.arange(hist.shape[1], device=hist.device)
+    second_bin = torch.where(bins == best_bin[win], -1, top_row).max()
+    second_song = vals[1] if n_songs > 1 else _zero(hist)
+    if n_dropped is None:
+        n_dropped = _zero(hist)
+    return RawMatch(top_songs, top_deltas, top_votes, rows_hist[top_songs],
+                    total, (votes > 0).sum(), n_dropped,
+                    torch.maximum(second_song.to(torch.int64),
+                                  second_bin.to(torch.int64)))
+
+
 def _solo(rank, sid, delta, first, valid, total, n_dropped, **kw) -> RawMatch:
     """A stack rank on one flat vote stream: its (topn,) and 0-dim row."""
     if n_dropped is None:

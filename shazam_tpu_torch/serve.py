@@ -864,10 +864,12 @@ def warmup(sia, seconds: float = 5.0, max_batch: int = 16,
     and at each of ``capacity_tiers``; and, when
     ``stream_window_seconds > 0``, one ``/stream`` session per engine.
 
-    ``pair_buckets`` must stay ``"auto"``: the JAX package warms query
-    pair buckets because each is an XLA compile shape, and the port
-    compiles nothing per shape, so any other value raises rather than do
-    nothing.
+    As the JAX package's ``"auto"`` ``pair_buckets``, a silent clip then
+    runs the same paths with its queries padded (``q_pad_to``) to 1,024
+    pairs and to twice the largest warm clip's power-of-two bucket. Any
+    other ``pair_buckets`` raises: the JAX package warms chosen buckets
+    because each is an XLA compile shape, and the port compiles nothing
+    per shape.
     """
     from .audio.synth import synth_song
 
@@ -886,16 +888,26 @@ def warmup(sia, seconds: float = 5.0, max_batch: int = 16,
         pow2_cap <<= 1
     tiers = ((int(pin_capacity),) if pin_capacity
              else (None, *(int(c) for c in capacity_tiers)))
-    for secs in (seconds, *clip_lengths):
-        clip = synth_song(0, duration_s=secs + 1.0, seed=123)[: int(secs * fs)]
-        clip = clip.astype(np.float32)
-        sia.recognize_samples([clip])
+
+    def warm(clip, q_pad_to=None):
+        out = sia.recognize_samples([clip], q_pad_to=q_pad_to)
         b = 1
         while b <= pow2_cap:
             for cap in tiers:
                 sia.recognize_batch([clip] * min(b, max_batch),
-                                    pad_to_pow2=True, match_capacity=cap)
+                                    pad_to_pow2=True, q_pad_to=q_pad_to,
+                                    match_capacity=cap)
             b <<= 1
+        return out
+
+    naturals = set()
+    for secs in (seconds, *clip_lengths):
+        clip = synth_song(0, duration_s=secs + 1.0, seed=123)[: int(secs * fs)]
+        n_pairs = warm(clip.astype(np.float32))["input_hashes"]
+        naturals.add(1 << max(n_pairs - 1, 1023).bit_length())
+    silent = np.zeros(int(seconds * fs), np.float32)
+    for bucket in sorted({1024, 2 * max(naturals)} - naturals):
+        warm(silent, q_pad_to=bucket)
 
     if stream_window_seconds > 0:
         # /stream/open exposes both engines: run one session of each (the

@@ -27,7 +27,10 @@ host index's place, as in the JAX package: its rows sorted by (key64, ex,
 payload), its sentinel rows intact and its payload below ``n_songs *
 stride``, each one reduction on its device, and its rows as many as the
 catalog records. Deferred-sort appends still pending are a WARNING (their
-order is not checked; the next query sorts them).
+order is not checked; the next query sorts them). A spanned SIA's store
+reports as the JAX package's ``SpannedDeviceStore`` does, with its
+errors, and ``spans_checked`` counts the ``span_rows`` chunks of its
+sorted rows (the chunks its span-wise file would hold).
 
 Catalog-side (always):
 
@@ -42,6 +45,8 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+
+from ..index.devmerge import rows_sorted
 
 _INT64_MAX = np.iinfo(np.int64).max
 
@@ -74,14 +79,11 @@ def _device_checks(dix) -> Dict[str, object]:
 
 def _store_checks(store) -> Dict[str, object]:
     """(sorted, sentinels intact, payload max) of a device store, each one
-    reduction on its device; sortedness is not checked (True) while
-    deferred-sort appends are pending."""
+    reduction on its device; deferred-sort appends still pending are not
+    held to the order, the rows before them are."""
     n = store.n_valid
     k, e, p = (c[:n] for c in store.cols)
-    ok = torch.ones((), dtype=torch.bool, device=k.device)
-    if not store._unsorted and n > 1:
-        ok = torch.all((k[1:] > k[:-1]) | ((k[1:] == k[:-1]) & (
-            (e[1:] > e[:-1]) | ((e[1:] == e[:-1]) & (p[1:] >= p[:-1])))))
+    ok = rows_sorted(*(c[: store._sorted_rows] for c in store.cols))
     pad = torch.all(store.cols[0][n:] == _INT64_MAX) \
         & torch.all(store.cols[1][n:] == _INT64_MAX)
     p_max = p.max() if n else p.new_zeros(())
@@ -92,28 +94,36 @@ def _store_checks(store) -> Dict[str, object]:
 
 
 def _check_store(store, catalog_total: int, errors: List[str],
-                 warnings: List[str], checks: Dict[str, object]) -> None:
-    """The device store's branch (the JAX package's store branch, without
-    spans)."""
-    checks["store"] = type(store).__name__
+                 warnings: List[str], checks: Dict[str, object],
+                 span_rows: int = 0) -> None:
+    """The device store's branch: the JAX package's store branch, and with
+    ``span_rows`` its spanned store's names and errors."""
+    checks["store"] = "SpannedDeviceStore" if span_rows else "DeviceIndex"
     checks["resident"] = True
     checks["index_hashes"] = store.n_valid
     checks["capacity"] = store.capacity
+    checks["spans_checked"] = (-(-store._sorted_rows // span_rows)
+                               if span_rows else int(store._sorted_rows > 0))
     if store._unsorted:
         warnings.append(
+            "1 span(s) hold deferred-sort appends — queries require "
+            "finalize() first (sortedness not checked for those)"
+            if span_rows else
             "the device store holds deferred-sort appends — queries "
             "finalize them first (their order is not checked)")
     dev = _store_checks(store)
     if not dev["sorted"]:
-        errors.append("device store rows are not sorted "
-                      "(binary search would be unsound)")
+        errors.append(("device span key columns are not sorted"
+                       if span_rows else "device store rows are not sorted")
+                      + " (binary search would be unsound)")
     if not dev["sentinels"]:
         errors.append("device store padding rows are not sentinels")
     limit = max(store.n_songs, 1) * store.stride
     if store.n_valid and dev["payload_max"] >= limit:
         errors.append(
-            f"device store payload max {dev['payload_max']} exceeds "
-            f"n_songs*stride ({max(store.n_songs, 1)}*{store.stride}) — "
+            f"{'packed' if span_rows else 'device store'} payload max "
+            f"{dev['payload_max']} exceeds n_songs*stride "
+            f"({max(store.n_songs, 1)}*{store.stride}) — "
             "song id or offset out of range")
     if store.n_valid != catalog_total:
         errors.append(
@@ -158,7 +168,8 @@ def check_integrity(sia, deep: bool = True) -> Dict:
     store = sia._dev_store
     if store is not None:
         with sia._upload_lock:
-            _check_store(store, catalog_total, errors, warnings, checks)
+            _check_store(store, catalog_total, errors, warnings, checks,
+                         sia.device_span_rows)
         return {"ok": not errors, "errors": errors, "warnings": warnings,
                 "checks": checks}
 

@@ -110,11 +110,7 @@ def test_synth_writes_the_jax_corpus(tmp_path, capsys):
             (tmp_path / "jax" / name).read_bytes()
 
 
-@pytest.mark.parametrize("argv", [
-    ["bench", "x"], ["plot", "x.wav"], ["recognize", "x.wav", "--early-exit"],
-    ["ingest", "x", "--span-rows", "8"], ["serve", "--span-rows", "8"],
-    ["serve", "--consolidate"],
-])
+@pytest.mark.parametrize("argv", [["bench", "x"], ["plot", "x.wav"]])
 def test_flags_the_port_cannot_honor_are_refused(argv, capsys):
     with pytest.raises(SystemExit) as ei:
         cli.build_parser().parse_args(argv)
@@ -144,6 +140,115 @@ def test_device_resident_ingest_then_recognize(workspace, tmp_path, capsys):
     assert out["results"][0]["song_name"] == os.path.splitext(track)[0]
     assert cli.build_parser().parse_args(
         ["serve", "--device-resident"]).device_resident
+
+
+def test_span_rows_ingest_writes_spanwise(workspace, tmp_path, capsys):
+    """ingest --span-rows: a spanned SIA whose saved index is the span-wise
+    file, holding the host-backed ingest's rows; recognize --span-rows
+    loads it straight into a store and answers."""
+    import numpy as np
+
+    from shazam_tpu_torch.index.devmerge import (is_spanned_file,
+                                                 load_spanned_flat)
+    from shazam_tpu_torch.index.store import FingerprintIndex
+
+    db = str(tmp_path / "spanned")
+    out = _run(capsys, "--db", db, "ingest", workspace["songs"],
+               "--span-rows", "4096")
+    assert out["ingested"] == 3
+    assert is_spanned_file(db + ".npz")
+    with np.load(db + ".npz") as z:
+        assert int(z["spanned_meta"][0]) == 4096
+    got = load_spanned_flat(db + ".npz")
+    want = FingerprintIndex.load(workspace["db"] + ".npz")
+    for name in ("key_hi", "key_lo", "key_ex", "song_id", "offset"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    track = sorted(os.listdir(workspace["songs"]))[1]
+    out = _run(capsys, "--db", db, "recognize",
+               os.path.join(workspace["songs"], track), "--limit", "5",
+               "--span-rows", "4096")
+    assert out["results"][0]["song_name"] == os.path.splitext(track)[0]
+
+
+def test_recognize_early_exit(workspace, capsys):
+    """recognize --early-exit: the apriori match answers the same song and
+    offset as the full match."""
+    track = os.path.join(workspace["songs"],
+                         sorted(os.listdir(workspace["songs"]))[0])
+    full = _run(capsys, "--db", workspace["db"], "recognize", track,
+                "--limit", "5")
+    fast = _run(capsys, "--db", workspace["db"], "recognize", track,
+                "--limit", "5", "--early-exit")
+    assert fast["results"][0]["song_name"] == os.path.splitext(
+        os.path.basename(track))[0]
+    for key in ("song_name", "offset"):
+        assert fast["results"][0][key] == full["results"][0][key]
+
+
+class _StubServer:
+    """Stands in for RecognitionServer: records the SIA, serves nothing."""
+
+    seen = []
+
+    def __init__(self, sia, **kw):
+        self.sia, self.port = sia, 0
+        self.batcher = type("B", (), {"stats": {}})()
+        _StubServer.seen.append(sia)
+
+    def install_signal_handlers(self):
+        pass
+
+    def serve_forever(self):
+        pass
+
+
+def _serve(monkeypatch, capsys, db, *flags):
+    from shazam_tpu_torch import serve
+
+    _StubServer.seen.clear()
+    monkeypatch.setattr(serve, "RecognitionServer", _StubServer)
+    out = _run(capsys, "--db", db, "serve", "--warmup", "0", *flags)
+    return _StubServer.seen[0], out
+
+
+def test_serve_span_rows(workspace, tmp_path, monkeypatch, capsys):
+    """serve --span-rows: the daemon's SIA is spanned, its store uploaded
+    straight from the span-wise file, and /save's save_index writes that
+    format again."""
+    from shazam_tpu_torch.index.devmerge import is_spanned_file
+
+    db = str(tmp_path / "served")
+    _run(capsys, "--db", db, "ingest", workspace["songs"], "--span-rows",
+         "4096")
+    sia, out = _serve(monkeypatch, capsys, db, "--span-rows", "4096")
+    assert sia.device_span_rows == 4096 and sia.device_resident
+    assert sia._dev_store is not None and sia._host_stale
+    assert out["hashes"] == sia._dev_store.n_valid > 0
+    sia.save_index(str(tmp_path / "again.npz"))
+    assert is_spanned_file(str(tmp_path / "again.npz"))
+
+
+def test_serve_consolidate(workspace, tmp_path, monkeypatch, capsys):
+    """serve --consolidate calls consolidate_index, which leaves the store
+    as it was and open to ingest (the JAX package's stacked store refuses
+    ingest)."""
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.audio import synth_song
+
+    calls = []
+    orig = SIA.consolidate_index
+    monkeypatch.setattr(SIA, "consolidate_index",
+                        lambda self: calls.append(self) or orig(self))
+    db = str(tmp_path / "consolidated")
+    _run(capsys, "--db", db, "ingest", workspace["songs"], "--span-rows",
+         "4096")
+    sia, _ = _serve(monkeypatch, capsys, db, "--span-rows", "4096",
+                    "--consolidate")
+    assert calls == [sia]
+    n0 = sia._dev_store.n_valid
+    st = sia.ingest_arrays([("fresh", synth_song(7, duration_s=4.0,
+                                                 seed=5))])
+    assert st["ingested"] == 1 and sia._dev_store.n_valid == n0 + st["hashes"]
 
 
 def test_config_file(workspace, tmp_path, capsys):

@@ -602,3 +602,67 @@ def test_ingest_device_batch_on_cuda_equals_host_ingest(cuda):
 
     assert answers(dev) == answers(host)
     assert answers(dev)[0]["song_name"] == "s3"
+
+
+def test_apriori_on_cuda_equals_cpu(cuda):
+    """Both apriori variants on the card: the host loop's and the device
+    variant's results equal each other and the CPU's, field for field and
+    batch for batch, through an early exit and a full sweep."""
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.match.apriori import (match_query_apriori,
+                                                match_query_apriori_ondevice)
+    from shazam_tpu_torch.match.prepare import prepare_query
+
+    songs = [(f"s{i}", synth_song(i, 10.0, seed=4)) for i in range(4)]
+    out = {}
+    for d in (cuda, "cpu"):
+        sia = SIA(device=d)
+        sia.ingest_arrays(songs)
+        index = sia._ensure_device_index()
+        clip = songs[2][1][3 * 44100: 8 * 44100]
+        q = prepare_query([sia._fingerprint_channel(clip)])
+        delta_min, delta_range = sia._delta_params_for(len(clip))
+        res = []
+        for bs in (64, 96, 1024):
+            kw = dict(n_songs=sia._n_songs(), delta_min=delta_min,
+                      delta_range=delta_range, batch_size=bs)
+            host = match_query_apriori(index, q, **kw)
+            dev = match_query_apriori_ondevice(index, q, **kw)
+            assert host[1:] == dev[1:]
+            res.append((host, dev))
+        out[str(d)] = res
+        assert sia.recognize_samples([clip], early_exit=True)[
+            "results"][0]["song_name"] == "s2"
+    assert any(h[1] < -(-q.n_pairs // 64) for h, _ in out["cpu"][:1])
+    for (gh, gd), (ch, cd) in zip(out[str(cuda)], out["cpu"]):
+        for got in (gh, gd):
+            assert got[1:] == ch[1:]
+            for a, b in zip(got[0], ch[0]):
+                assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_spanned_round_trip_on_cuda(cuda, tmp_path):
+    """A spanned SIA on the card saves the span-wise file, which loads
+    straight onto a store on the card and flat on the CPU, rows equal."""
+    from shazam_tpu_torch.api import SIA
+
+    songs = [(f"s{i}", synth_song(i, 6.0, seed=4)) for i in range(8)]
+    sia = SIA(device=cuda, device_span_rows=4096)
+    sia.ingest_arrays(songs)
+    path = str(tmp_path / "spanned.npz")
+    sia.save_index(path)
+    back = SIA(device=cuda, device_span_rows=4096)
+    back.catalog = sia.catalog
+    back.load_index(path)
+    assert back._dev_store.device.type == "cuda" and back._host_stale
+    flat = SIA(device="cpu")
+    flat.catalog = sia.catalog
+    flat.load_index(path)
+    for name in ("key_hi", "key_lo", "key_ex", "song_id", "offset"):
+        assert np.array_equal(getattr(back.index, name),
+                              getattr(sia.index, name)), name
+        assert np.array_equal(getattr(flat.index, name),
+                              getattr(sia.index, name)), name
+    clip = songs[5][1][44100: 5 * 44100]
+    assert back.recognize_clip(clip)["results"] == \
+        flat.recognize_clip(clip)["results"]

@@ -29,11 +29,13 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import shazam_tpu_torch.serve, shazam_tpu_torch.client\n"
         "import shazam_tpu_torch.cli, shazam_tpu_torch.tools.fsck\n"
         "import shazam_tpu_torch.tools.stats, shazam_tpu_torch.tools.sanity\n"
+        "import shazam_tpu_torch.match.apriori, shazam_tpu_torch.index.registry\n"
         "from shazam_tpu_torch.api import SIA\n"
         "for name in ('ingest_files', 'ingest_directory', 'ingest_channels',\n"
         "             'recognize_file', 'recognize_batch', 'prepare_batch',\n"
         "             'match_prepared_batch', '_live_n_hashes',\n"
-        "             'ingest_device_batch', '_live_n_songs'):\n"
+        "             'ingest_device_batch', '_live_n_songs',\n"
+        "             'consolidate_index'):\n"
         "    assert callable(getattr(SIA, name)), name\n"
         "shazam_tpu_torch.audio.resample.resample_channel(\n"
         "    __import__('numpy').zeros(480, 'int16'), 48000, 44100)\n"
@@ -74,6 +76,16 @@ def _resident_sia(**kw):
     return _sia(device_resident=True, **kw)
 
 
+def _spanned_sia(**kw):
+    return _sia(device_span_rows=4096, **kw)
+
+
+def _memory_backend(**kw):
+    from shazam_tpu_torch.index.registry import get_backend
+
+    return get_backend("memory")("", **kw)
+
+
 def _fingerprint(**kw):
     from shazam_tpu_torch.ops.fingerprint import fingerprint
 
@@ -102,7 +114,7 @@ def _cli_stats():
 
 
 @pytest.mark.parametrize("entry", [
-    _sia, _resident_sia, _fingerprint,
+    _sia, _resident_sia, _spanned_sia, _memory_backend, _fingerprint,
     _stream_engine("IncrementalFingerprinter"),
     _stream_engine("DeviceIncrementalFingerprinter"), _cli_stats])
 def test_entry_points_default_to_the_card(monkeypatch, entry):

@@ -150,7 +150,25 @@ Phases (each raises on failure; any failure exits non-zero):
    and give its answers, identical and right, to 8 15 s clips (4 of the
    new songs, 4 of phase 4's); save and load seconds are printed. K1-K3
    must launch, and their first launch at each shape passes a
-   ``ShapeAudit``.
+   ``ShapeAudit``;
+9. parallel, on phase 7's host-backed SIA (2,842 songs and more):
+   ``shazam_tpu_torch/parallel`` at one rank per card, a one-rank NCCL
+   group from ``make_mesh`` (its backend and size printed), in the order
+   of the JAX package's ``dryrun_multichip``: ``sharded_ingest_step`` at
+   phase 3's (8, 1,572,864) equal to ``fingerprint_batch_fused`` row for
+   row; ``ShardedCatalog`` by-song (the default ``dense_limit_bytes`` at
+   this size) and key-range (``2^30``) behind ``ShardedRecognizer``, 16
+   of phase 4's clips each right and equal to ``SIA.recognize_samples``
+   by phase 5's rule, both engines' clip p50 printed, one dense-histogram
+   all-reduce and one candidate gather timed (CUDA events); early exit
+   on 8 clips keeping the full match's top-1; an HTTP daemon over the
+   recognizer answering 8 requests as the recognizer does and refusing a
+   mutation, and a stream session over it right;
+   ``sequence_parallel_fingerprint`` of a 30 s song equal to
+   ``fingerprint_samples``; ``distributed_ingest_arrays`` of 16 new songs
+   answering 8 clips right and alike after ``save_local_shards`` /
+   ``load_local_shards``. K1-K3 must launch and pass a ``ShapeAudit``;
+   the group is destroyed at the end.
 
 It prints the card's name and power limit, build seconds, per-kernel
 times, ingest seconds and rows, clip latencies and the idle shares, then
@@ -250,6 +268,13 @@ APRIORI_BATCH = 1024
 SPAN_ROWS = 1 << 22
 SPAN_SONGS = 16
 SPAN_CLIPS = 8
+# phase 9: the sharded path (parallel/*) at one rank per card
+PARALLEL_CLIPS = 16
+PARALLEL_EARLY_CLIPS = 8
+PARALLEL_DAEMON_CLIPS = 8
+PARALLEL_INGEST_ROWS = 8
+PARALLEL_NEW_SONGS = 16
+PARALLEL_NEW_CLIPS = 8
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
 F64_FLOP_S = 34e12      # float64 outside the tensor cores
 F32_FLOP_S = 67e12      # float32 outside the tensor cores
@@ -2392,6 +2417,291 @@ def spans(sia, big_clips, first_id: int) -> dict:
     return out
 
 
+def _phase_ms(fn, on_card: bool, calls: int = 10) -> float:
+    """Milliseconds per call: CUDA events on the card, the host clock on
+    the CPU (a rehearsal's number, never a device time)."""
+    fn()
+    if on_card:
+        return _event_ms(fn, calls)
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return 1e3 * (time.perf_counter() - t) / calls
+
+
+def parallel(sia, big_clips, first_id: int) -> dict:
+    """Phase 9 on phase 7's host-backed SIA: the sharded path
+    (``shazam_tpu_torch/parallel``) at one rank per card, in the order of
+    the JAX package's ``dryrun_multichip``. ``make_mesh`` starts a
+    one-rank group (NCCL on the card); then (1) ``sharded_ingest_step`` of
+    PARALLEL_INGEST_ROWS 30 s songs equals ``fingerprint_batch_fused`` row
+    for row; (2) ``ShardedCatalog`` in both regimes (by-song by default
+    here, key-range with ``dense_limit_bytes=2^30``) answers
+    PARALLEL_CLIPS of phase 4's 15 s clips through ``ShardedRecognizer``,
+    each right and equal to ``SIA.recognize_samples`` by phase 5's rule,
+    and one dense-histogram all-reduce and one candidate gather are timed;
+    (3) early exit on the key-range regime keeps the full match's top-1;
+    (4) an HTTP daemon over the recognizer answers as the recognizer
+    does and refuses a mutation, and a stream session over it is right;
+    (5) ``sequence_parallel_fingerprint`` of a 30 s song equals
+    ``fingerprint_samples``; (6) ``distributed_ingest_arrays`` of
+    PARALLEL_NEW_SONGS new songs answers PARALLEL_NEW_CLIPS clips alike
+    before and after ``save_local_shards`` / ``load_local_shards``."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from shazam_tpu_torch.client import SIAClient, SIAServerError
+    from shazam_tpu_torch.match.prepare import prepare_query
+    from shazam_tpu_torch.ops.fingerprint import (fingerprint_batch,
+                                                  fingerprint_batch_fused,
+                                                  fingerprint_samples)
+    from shazam_tpu_torch.parallel.mesh import make_mesh
+    from shazam_tpu_torch.parallel.multihost import (SpannedCatalog,
+                                                     distributed_ingest_arrays)
+    from shazam_tpu_torch.parallel.sequence import \
+        sequence_parallel_fingerprint
+    from shazam_tpu_torch.parallel.serving import (ShardedCatalog,
+                                                   ShardedRecognizer)
+    from shazam_tpu_torch.parallel.sharded import (all_gather_cat, all_sum,
+                                                   sharded_ingest_step,
+                                                   sharded_match_apriori)
+    from shazam_tpu_torch.serve import RecognitionServer
+    from shazam_tpu_torch.stream import CHUNK, StreamRecognizer
+
+    dev = sia.device
+    on_card = dev.type == "cuda"
+    out, secs = {}, {}
+    t = time.perf_counter()
+    mesh = make_mesh(device=dev)
+    out.update(backend=mesh.backend, world_size=mesh.size)
+    print(f"parallel: {mesh.backend} group of {mesh.size} rank(s) on {dev}",
+          flush=True)
+    row_ids = list(range(PARALLEL_INGEST_ROWS))
+    new_ids = list(range(first_id, first_id + PARALLEL_NEW_SONGS))
+    with mp.get_context("spawn").Pool(os.cpu_count() or 1) as pool:
+        songs = dict(zip(row_ids + new_ids, pool.map(_song, row_ids + new_ids)))
+        pool.close()
+        pool.join()
+    secs["setup"] = time.perf_counter() - t
+    try:
+        # (1) data-parallel ingest at phase 3's ingest shape
+        t = time.perf_counter()
+        rows = np.zeros((len(row_ids), 6 << 18), np.int16)
+        n_valid = np.array([len(songs[i]) for i in row_ids], np.int32)
+        for r, i in enumerate(row_ids):
+            rows[r, : n_valid[r]] = songs[i]
+        fp = sharded_ingest_step(mesh, rows, n_valid, peak_capacity=16384)
+        ref = (fingerprint_batch_fused if on_card else fingerprint_batch)(
+            torch.from_numpy(rows).to(dev).to(torch.float32),
+            torch.from_numpy(n_valid).to(dev), peak_capacity=16384)
+        same = [all(torch.equal(a[r], b[r]) for a, b in zip(fp, ref))
+                for r in range(len(row_ids))]
+        if not all(same):
+            raise AssertionError(f"sharded_ingest_step rows differ: {same}")
+        out["ingest_step"] = {"rows": len(row_ids), "shape": list(rows.shape),
+                              "hashes": int(fp.valid.sum())}
+        secs["ingest_step"] = time.perf_counter() - t
+
+        # (2) both regimes against the SIA
+        t = time.perf_counter()
+        clips = big_clips[:PARALLEL_CLIPS]
+        solo, solo_lat = [], []
+        for sid, frame, c in clips:
+            t1 = time.perf_counter()
+            r = sia.recognize_samples([c])
+            solo_lat.append(1e3 * (time.perf_counter() - t1))
+            solo.append(_answer(r))
+        recs, regimes = {}, {}
+        for label, kw in (("by_song", {}),
+                          ("key_range", {"dense_limit_bytes": 1 << 30})):
+            t1 = time.perf_counter()
+            cat = ShardedCatalog(sia.index, mesh=mesh, config=sia.config,
+                                 catalog=sia.catalog, **kw)
+            _sync(dev)
+            build_s = time.perf_counter() - t1
+            if cat.regime != label:
+                raise AssertionError(f"regime {cat.regime}, want {label}")
+            rec = recs[label] = ShardedRecognizer(cat)
+            answers, lat = [], []
+            for sid, frame, c in clips:
+                t1 = time.perf_counter()
+                r = rec.recognize_samples([c])
+                lat.append(1e3 * (time.perf_counter() - t1))
+                if not _right(r, sid, frame * HOP / FS):
+                    raise AssertionError(f"{label}: clip of {sid} wrong: "
+                                         f"{r['results'][:1]}")
+                answers.append(_answer(r))
+            regimes[label] = {"answers": answers, "build_s": build_s,
+                              "clip_p50_ms": float(np.median(lat)),
+                              "stats": cat.stats()}
+        # the by-song regime never accepts a clamp, so its counts are the
+        # exact ones two decided runs are held to (phase 5's rule)
+        exact = regimes["by_song"]["answers"]
+        for label, reg in regimes.items():
+            bad = [(clips[j][:2], solo[j], a) for j, a in
+                   enumerate(reg.pop("answers"))
+                   if not _same_answer(solo[j], a, exact[j])]
+            if bad:
+                raise AssertionError(f"{label} differs from the SIA: "
+                                     f"{bad[:3]}")
+        cat = recs["key_range"].cat
+        hist = torch.zeros(max(cat.n_songs, 1) * cat._delta_range_for(1024),
+                           dtype=torch.int32, device=dev)
+        cand = torch.zeros((max(sia.config.topn, 2), 4), dtype=torch.int64,
+                           device=dev)
+        out["regimes"] = regimes
+        out["sia_clip_p50_ms"] = float(np.median(solo_lat))
+        out["allreduce_mb"] = hist.numel() * 4 / 1e6
+        out["allreduce_ms"] = _phase_ms(lambda: all_sum(mesh, hist), on_card)
+        out["gather_ms"] = _phase_ms(lambda: all_gather_cat(mesh, cand),
+                                     on_card)
+        print(f"parallel: {len(clips)} clips right in both regimes and equal "
+              f"to the SIA; clip p50 ms: SIA {out['sia_clip_p50_ms']:.3f}, "
+              + ", ".join(f"{k} {v['clip_p50_ms']:.3f} (built in "
+                          f"{v['build_s']:.3f} s)" for k, v in regimes.items())
+              + f"; dense-histogram all-reduce of {out['allreduce_mb']:.1f} "
+              f"MB {out['allreduce_ms']:.4f} ms, candidate gather "
+              f"{out['gather_ms']:.4f} ms", flush=True)
+        secs["regimes"] = time.perf_counter() - t
+
+        # (3) early exit on the key-range regime
+        t = time.perf_counter()
+        rec = recs["key_range"]
+        cat = rec.cat
+        lat, rounds = [], []
+        for sid, frame, c in clips[:PARALLEL_EARLY_CLIPS]:
+            full = _answer(rec.recognize_samples([c]))
+            t1 = time.perf_counter()
+            part = _answer(rec.recognize_samples([c], early_exit=True))
+            lat.append(1e3 * (time.perf_counter() - t1))
+            if (part["song_id"], part["offset"]) != (full["song_id"],
+                                                     full["offset"]):
+                raise AssertionError(f"early exit on the clip of {sid}: "
+                                     f"{part} against {full}")
+            # the rounds behind it: [used, of, a round past its cap (then
+            # match_apriori runs the full match)]
+            q = prepare_query([rec._fp._fingerprint_channel(c)])
+            qf = cat._q_frames_for(q)
+            _raw, used, clamped = sharded_match_apriori(
+                mesh, cat._shards, q, n_songs=max(cat.n_songs, 1),
+                delta_min=-qf, delta_range=cat._delta_range_for(qf),
+                match_capacity=sia.config.match_capacity,
+                topn=sia.config.topn)
+            rounds.append([used, -(-q.n_pairs // 1024), clamped])
+        out["early_exit"] = {
+            "clips": len(lat), "p50_ms": float(np.median(lat)),
+            "rounds": rounds,
+            "stopped_early": sum(u < n and not c for u, n, c in rounds),
+            "full_match_fallbacks": sum(c for _u, _n, c in rounds)}
+        secs["early_exit"] = time.perf_counter() - t
+
+        # (4) the daemon and a stream session over the recognizer
+        t = time.perf_counter()
+        rec = recs["by_song"]
+        srv = RecognitionServer(rec, port=0, max_batch=16, max_wait_ms=10)
+        srv.start_background()
+        try:
+            client = SIAClient(f"http://127.0.0.1:{srv.port}")
+            daemon = clips[:PARALLEL_DAEMON_CLIPS]
+            got = [client.recognize(c, fs=FS) for _, _, c in daemon]
+            want = [rec.recognize_samples([c]) for _, _, c in daemon]
+            bad = [(sid, _answer(a), _answer(b)) for (sid, frame, _), a, b
+                   in zip(daemon, got, want)
+                   if _answer(a) != _answer(b)
+                   or not _right(a, sid, frame * HOP / FS)]
+            if bad:
+                raise AssertionError(f"daemon over the recognizer: {bad[:3]}")
+            try:
+                client.ingest("refused", daemon[0][2], fs=FS)
+                refused = None
+            except SIAServerError as e:
+                refused = e.message
+            if not refused or "online catalog mutation" not in refused:
+                raise AssertionError(f"mutation not refused: {refused}")
+        finally:
+            srv.close()
+        sid, frame, c = clips[0]
+        sr = StreamRecognizer(rec, channels=1, window_seconds=STREAM_WINDOW_S)
+        for a in range(0, len(c) - CHUNK + 1, CHUNK):
+            sr.feed(c[a: a + CHUNK])
+        res = sr.recognize()
+        start = frame * HOP + sr._fps[0].window_sample_range()[0]
+        if not _right(res, sid, start / FS) or sr.fallbacks:
+            raise AssertionError(f"stream over the recognizer: "
+                                 f"{res['results'][:1]}, fallbacks "
+                                 f"{sr.fallbacks}")
+        out["daemon"] = {"requests": len(got), "refused": refused}
+        secs["daemon_stream"] = time.perf_counter() - t
+
+        # (5) sequence parallel: one 30 s song
+        t = time.perf_counter()
+        song = songs[row_ids[0]].astype(np.float32)
+        pad = np.zeros(-(-len(song) // (mesh.size * HOP)) * mesh.size * HOP,
+                       np.float32)
+        pad[: len(song)] = song
+        seq = sequence_parallel_fingerprint(mesh, pad, len(song),
+                                            peak_capacity=16384)
+        one = fingerprint_samples(torch.from_numpy(pad).to(dev), len(song),
+                                  peak_capacity=16384)
+        if not all(torch.equal(a, b) for a, b in zip(seq, one)):
+            raise AssertionError("sequence_parallel_fingerprint differs from "
+                                 "fingerprint_samples")
+        out["sequence"] = {"samples": len(song), "n_peaks": int(seq.n_peaks),
+                           "hashes": int(seq.valid.sum())}
+        secs["sequence"] = time.perf_counter() - t
+
+        # (6) distributed ingest, save, load
+        t = time.perf_counter()
+        names = [f"song{i:05d}" for i in new_ids]
+        spanned, local = distributed_ingest_arrays(
+            names, lambda s: songs[new_ids[s]], config=sia.config, mesh=mesh)
+        rng = np.random.default_rng(first_id)
+        clip_len = int(BIG_CLIP_S * FS)
+        max_frame = (int(30.0 * FS) - clip_len) // HOP
+        picks = [(s, int(rng.integers(0, max_frame + 1))) for s in
+                 rng.choice(len(new_ids), PARALLEL_NEW_CLIPS, replace=False)]
+        queries = [prepare_query([local._fingerprint_channel(
+            songs[new_ids[s]][f * HOP: f * HOP + clip_len])])
+            for s, f in picks]
+
+        def answers(cat):
+            res = [cat.match(q, topn=2, config=sia.config) for q in queries]
+            return [[(r["song_id"], r["offset"], r["hashes_matched_in_input"])
+                     for r in m.results] + [m.total_matches] for m in res]
+
+        before = answers(spanned)
+        wrong = [(s, f, a[:1]) for (s, f), a in zip(picks, before)
+                 if a[0][:2] != (s, f)]
+        if wrong:
+            raise AssertionError(f"distributed ingest answers: {wrong[:3]}")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = spanned.save_local_shards(tmp)
+            file_mb = os.path.getsize(path) / 1e6
+            after = answers(SpannedCatalog.load_local_shards(tmp, mesh=mesh))
+        if after != before:
+            raise AssertionError("shard files answer differently")
+        out["distributed_ingest"] = {
+            "songs": len(new_ids), "rows": int(spanned._shard.n_rows),
+            "clips": len(picks), "file_mb": file_mb}
+        secs["distributed_ingest"] = time.perf_counter() - t
+        print(f"parallel: ingest step {out['ingest_step']}, early exit "
+              f"{out['early_exit']}, daemon {out['daemon']['requests']} "
+              f"answers and a refused mutation, stream right, sequence "
+              f"{out['sequence']}, distributed ingest "
+              f"{out['distributed_ingest']}", flush=True)
+    finally:
+        recs = None
+        dist.destroy_process_group()
+        if on_card:
+            torch.cuda.empty_cache()
+    out["seconds"] = secs
+    print(f"phase 9 seconds: { {k: round(v, 3) for k, v in secs.items()} }",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--songs", type=int, default=2035)
@@ -2500,6 +2810,21 @@ def main(argv=None) -> int:
 
     spans_out, launches_spans = launched("spans", spanned)
 
+    def sharded():
+        with ShapeAudit(sia.config) as audit:
+            out = parallel(sia, big_clips, args.big_songs + args.file_songs
+                           + 2 + RESIDENT_BATCHES * RESIDENT_BATCH + 1
+                           + SPAN_SONGS)
+        out["twin_audit"] = audit.check()
+        print("phase 9's first launch at each shape equal to its plain twin "
+              "(K1 in dB): " + "; ".join(
+                  f"{name} at {[k for k, _ in v]}, max err "
+                  f"{max((e for _, e in v), default=0)}"
+                  for name, v in out["twin_audit"].items()), flush=True)
+        return out
+
+    parallel_out, launches_parallel = launched("parallel", sharded)
+
     report = []
     for name, source, replaces in KERNELS:
         m = measured[name]
@@ -2513,6 +2838,7 @@ def main(argv=None) -> int:
             "launches_serve_stream": launches_serve[name],
             "launches_device_resident": launches_resident[name],
             "launches_spans": launches_spans[name],
+            "launches_parallel": launches_parallel[name],
             "max_abs_err": max(r["err"] for r in m.values()),
             **{k: m["ingest"][k] for k in (
                 "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
@@ -2524,7 +2850,8 @@ def main(argv=None) -> int:
                       "early_exit": early,
                       "big_catalog": big, "files_and_batches": files,
                       "serve_and_stream": served,
-                      "device_resident": resident_out, "spans": spans_out},
+                      "device_resident": resident_out, "spans": spans_out,
+                      "parallel": parallel_out},
                      default=str),
           flush=True)
     print(json.dumps({"ok": True, "device": {

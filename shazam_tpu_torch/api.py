@@ -91,7 +91,8 @@ from .match.lookup import RawMatch, match_by_rank, query_total, raw_to_host
 from .match.ondevice import fingerprint_probe_on_device, recognize_on_device
 from .match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
 from .ops.fingerprint import (Fingerprints, fingerprint_batch,
-                              fingerprint_batch_fused, union_pairs)
+                              fingerprint_batch_fused, fused_takes,
+                              union_pairs)
 
 MAX_PEAK_CAPACITY = 1 << 22
 QUERY_COLUMNS = ("hi", "lo", "ex", "t", "valid", "first")
@@ -167,12 +168,8 @@ def _fused_ok(config: FingerprintConfig) -> bool:
     """The kernels (K1 -> K2 -> K3) cover the reference configuration,
     whose window and peak radius they are compiled for; anything else
     takes the plain pipeline, with the same semantics."""
-    return (
-        config.window_size == 4096
-        and config.window_size % config.hop == 0
-        and config.peak_neighborhood_size == 10
-        and config.amp_min > 0
-    )
+    return fused_takes(config.window_size, config.hop,
+                       config.peak_neighborhood_size, config.amp_min)
 
 
 def _bucket_len(n: int, step: int = 1 << 18) -> int:

@@ -402,6 +402,27 @@ def accumulate_votes(hist, rows_hist, sid, delta, first, valid, *,
     rows_hist.index_add_(0, torch.where(row, sid, 0), row.to(torch.int32))
 
 
+def match_local(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid, q_first,
+                *, n_songs: int, delta_min: int, delta_range: int,
+                match_capacity: int):
+    """The JAX package's ``match_local``: one (shard of the) index's dense
+    votes before any ranking. Returns (hist, rows_hist, total, n_dropped):
+    the (n_songs, delta_range) int32 vote histogram, the (n_songs,) int32
+    dedup row counts, the exact expanded match count and the number of
+    runs the capacity excluded, the last two 0-dim int64. The sharded
+    matchers sum these over ranks before ranking (``n_dropped`` sums
+    soundly: an excluded run anywhere adds at most one vote to any bin)."""
+    check_vote_key(n_songs, delta_range)
+    sid, delta, p, valid, total, n_dropped = _expand(
+        index, q_hi, q_lo, q_ex, q_t, q_valid, match_capacity=match_capacity)
+    dev = sid.device
+    hist = torch.zeros((n_songs, delta_range), dtype=torch.int32, device=dev)
+    rows_hist = torch.zeros(n_songs, dtype=torch.int32, device=dev)
+    accumulate_votes(hist, rows_hist, sid, delta, q_first[p], valid,
+                     delta_min=delta_min)
+    return hist, rows_hist, total, n_dropped
+
+
 def rank_votes(hist, rows_hist, total, *, delta_min: int, topn: int,
                n_dropped=None) -> RawMatch:
     """The JAX package's ``rank_votes``: per-song best delta (the first

@@ -58,6 +58,13 @@ def _hash(times, freqs, n_peaks, fan_value, min_dt, max_dt) -> Fingerprints:
     return Fingerprints(hi, lo, ex, t1, valid, n_peaks)
 
 
+def fused_takes(wsize: int, hop: int, radius: int, amp_min: float) -> bool:
+    """Whether ``fingerprint_batch_fused`` takes these parameters: the
+    kernels are compiled for the reference window (4096) and peak radius
+    (10), and their gate needs amp_min > 0."""
+    return wsize == 4096 and wsize % hop == 0 and radius == 10 and amp_min > 0
+
+
 def fingerprint_batch_fused(
     samples: torch.Tensor,
     n_valid_samples: torch.Tensor,

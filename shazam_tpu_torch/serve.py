@@ -139,7 +139,9 @@ class MicroBatcher:
         # thread (SIA.match_prepared_batch), so batch k+1's fingerprint
         # overlaps batch k's match and its read-backs.
         # maxsize=1 = exactly one batch in flight behind the matcher.
-        self.pipeline = bool(pipeline)
+        # Engines without the two stages (parallel.serving.
+        # ShardedRecognizer) run single-threaded.
+        self.pipeline = bool(pipeline) and hasattr(sia, "prepare_batch")
         self._pipe: "queue.Queue" = queue.Queue(maxsize=1)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="sia-batcher")
@@ -149,6 +151,12 @@ class MicroBatcher:
             self._mthread = threading.Thread(target=self._match_loop,
                                              daemon=True, name="sia-matcher")
             self._mthread.start()
+
+    def _pin_kw(self) -> Dict:
+        """``match_capacity`` only when a tier is pinned: engines without
+        the keyword (parallel.serving.ShardedRecognizer) stay servable."""
+        return ({"match_capacity": self.pin_capacity}
+                if self.pin_capacity else {})
 
     def submit(self, p: _Pending) -> None:
         self.q.put(p)
@@ -280,6 +288,10 @@ class MicroBatcher:
                     p.result = self._stream_op(p)
                     self._finish(p)
                     continue
+                if not hasattr(self.sia, "ingest_channels"):
+                    raise RuntimeError(
+                        "this engine does not support online catalog "
+                        "mutation (e.g. a sharded recognizer facade)")
                 if p.kind == "ingest":
                     p.result = self.sia.ingest_channels(p.name, p.channels)
                     self.stats["ingests"] += 1
@@ -319,7 +331,7 @@ class MicroBatcher:
                     t_p = time.monotonic()
                     pb = self.sia.prepare_batch(
                         [p.channels[0] for p in mono], topn=mono[0].topn,
-                        pad_to_pow2=True, match_capacity=self.pin_capacity)
+                        pad_to_pow2=True, **self._pin_kw())
                     with self._slock:
                         # stage-1 host+fingerprint-dispatch time (see
                         # match_s above for the stage-2 counterpart)
@@ -339,7 +351,7 @@ class MicroBatcher:
                     # ones the warmup ran (as the pipelined path)
                     outs = self.sia.recognize_batch(
                         [p.channels[0] for p in mono], topn=mono[0].topn,
-                        pad_to_pow2=True, match_capacity=self.pin_capacity)
+                        pad_to_pow2=True, **self._pin_kw())
                     for p, out in zip(mono, outs):
                         p.result = out
                 except Exception as e:  # noqa: BLE001 — per request
@@ -508,9 +520,10 @@ def _make_handler(batcher: MicroBatcher, sia, timeout_s: float,
             if path == "/healthz":
                 self._json(200, {"ok": True})
             elif path == "/stats":
-                counts = sia.catalog.counts()
+                catalog = getattr(sia, "catalog", None)
+                counts = catalog.counts() if catalog is not None else {}
                 extra = {}
-                if sia._decide_boost:
+                if getattr(sia, "_decide_boost", 0):
                     # the self-tuning decide tier raised itself (see
                     # config.decide_adapt_window) — surface it so an
                     # operator can pin it across restarts
@@ -715,7 +728,7 @@ def _make_handler(batcher: MicroBatcher, sia, timeout_s: float,
             finally:
                 os.unlink(tmp)
         if fs != sia.config.sample_rate:
-            if not sia.resample:
+            if not getattr(sia, "resample", False):
                 raise ValueError(
                     f"sample rate {fs} != config {sia.config.sample_rate}")
             from .audio.resample import resample_channels
@@ -751,9 +764,11 @@ def _make_handler(batcher: MicroBatcher, sia, timeout_s: float,
         lines.append("# HELP sia_max_batch largest micro-batch so far")
         lines.append("# TYPE sia_max_batch gauge")
         lines.append(f"sia_max_batch {batcher.stats.get('max_batch', 0)}")
-        for k, v in sia.catalog.counts().items():
-            lines.append(f"# TYPE sia_catalog_{k} gauge")
-            lines.append(f"sia_catalog_{k} {v}")
+        catalog = getattr(sia, "catalog", None)
+        if catalog is not None:
+            for k, v in catalog.counts().items():
+                lines.append(f"# TYPE sia_catalog_{k} gauge")
+                lines.append(f"sia_catalog_{k} {v}")
         lines.append("# TYPE sia_index_hashes gauge")
         lines.append(f"sia_index_hashes {sia._live_n_hashes()}")
         lat = batcher.latency_summary()
@@ -881,7 +896,8 @@ def warmup(sia, seconds: float = 5.0, max_batch: int = 16,
         from ._build import library
 
         library()
-    sia._ensure_device_index()
+    if hasattr(sia, "_ensure_device_index"):
+        sia._ensure_device_index()
     fs = sia.config.sample_rate
     pow2_cap = 1
     while pow2_cap < max_batch:
@@ -894,9 +910,12 @@ def warmup(sia, seconds: float = 5.0, max_batch: int = 16,
         b = 1
         while b <= pow2_cap:
             for cap in tiers:
+                # match_capacity only when a tier is set, as the batcher
+                # passes it (facade engines take no such keyword)
                 sia.recognize_batch([clip] * min(b, max_batch),
                                     pad_to_pow2=True, q_pad_to=q_pad_to,
-                                    match_capacity=cap)
+                                    **({"match_capacity": cap} if cap
+                                       else {}))
             b <<= 1
         return out
 

@@ -317,14 +317,22 @@ class StreamRecognizer:
 
         a, b = self._fps[0].window_sample_range()
         t0 = time.time()
-        raw, cap_used = self.sia._match_prepared(q, n_samples=b - a, topn=topn)
-        query_time = time.time() - t0
-        t0 = time.time()
-        matched = align_results(
-            raw, q.n_pairs, catalog=self.sia.catalog,
-            config=self.sia.config, match_capacity=cap_used,
-        )
-        align_time = time.time() - t0
+        raw_matcher = getattr(self.sia, "_match_prepared", None)
+        if raw_matcher is not None:
+            raw, cap_used = raw_matcher(q, n_samples=b - a, topn=topn)
+            query_time = time.time() - t0
+            t0 = time.time()
+            matched = align_results(
+                raw, q.n_pairs, catalog=self.sia.catalog,
+                config=self.sia.config, match_capacity=cap_used,
+            )
+            align_time = time.time() - t0
+        else:
+            # SIA-shaped facades (parallel.serving.ShardedRecognizer)
+            # expose an aligned prepared-query match spanning the group
+            matched = self.sia.match_prepared(q, topn=topn)
+            query_time = time.time() - t0
+            align_time = 0.0
         return {
             "results": matched.results,
             "total_matches": matched.total_matches,

@@ -9,6 +9,8 @@ which the port does not)
     python -m pytest -c /dev/null --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -666,3 +668,171 @@ def test_spanned_round_trip_on_cuda(cuda, tmp_path):
     clip = songs[5][1][44100: 5 * 44100]
     assert back.recognize_clip(clip)["results"] == \
         flat.recognize_clip(clip)["results"]
+
+
+def test_one_rank_nccl_sharded_catalog_equals_sia(cuda):
+    """``make_mesh()`` on the card is a one-rank NCCL group; a
+    ``ShardedCatalog`` on it, in both regimes, answers as the SIA whose
+    index it shards (``ShardedRecognizer`` fingerprints with K1-K3), and
+    ``sequence_parallel_fingerprint`` at one rank equals the single-device
+    pipeline."""
+    import torch.distributed as dist
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.ops.fingerprint import fingerprint_samples
+    from shazam_tpu_torch.parallel.mesh import make_mesh
+    from shazam_tpu_torch.parallel.sequence import \
+        sequence_parallel_fingerprint
+    from shazam_tpu_torch.parallel.serving import (ShardedCatalog,
+                                                   ShardedRecognizer)
+
+    songs = [(f"s{i}", synth_song(i, 8.0, seed=4)) for i in range(5)]
+    sia = SIA(device=cuda)
+    sia.ingest_arrays(songs)
+    mesh = make_mesh()
+    try:
+        assert (mesh.backend, mesh.size, mesh.device.type) == ("nccl", 1,
+                                                               "cuda")
+        clips = [songs[i][1][44100: 6 * 44100] for i in (1, 3)]
+        for limit, regime in ((1 << 30, "key_range"), (1, "by_song")):
+            rec = ShardedRecognizer(ShardedCatalog(
+                sia.index, mesh=mesh, catalog=sia.catalog,
+                dense_limit_bytes=limit))
+            assert rec.cat.regime == regime
+            for clip in clips:
+                got = rec.recognize_samples([clip], topn=3)
+                want = sia.recognize_samples([clip], topn=3)
+                assert got["results"] == want["results"], regime
+                assert got["total_matches"] == want["total_matches"]
+        song = songs[2][1].astype(np.float32)
+        pad = np.zeros(-(-len(song) // 2048) * 2048, np.float32)
+        pad[: len(song)] = song
+        seq = sequence_parallel_fingerprint(mesh, pad, len(song))
+        ref = fingerprint_samples(torch.from_numpy(pad).to(cuda), len(song))
+        assert all(torch.equal(a, b) for a, b in zip(seq, ref))
+    finally:
+        dist.destroy_process_group()
+
+
+def _four_rank_work(rank, world, songs, cols, q):
+    """Every sharded entry point at 4 ranks, for
+    ``test_four_ranks_over_nccl_equal_gloo``: the matches as plain values
+    (the index and query are the CPU's, so they must be equal on any
+    backend), the rest as equality with the same device's single-device
+    pipeline."""
+    import torch.distributed as dist
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.index.store import from_numpy
+    from shazam_tpu_torch.match.lookup import raw_to_host
+    from shazam_tpu_torch.match.prepare import QueryPairs
+    from shazam_tpu_torch.ops.fingerprint import (fingerprint_batch,
+                                                  fingerprint_batch_fused,
+                                                  fingerprint_samples)
+    from shazam_tpu_torch.parallel.bigcatalog import (shard_index_by_song,
+                                                      sharded_match_by_song)
+    from shazam_tpu_torch.parallel.mesh import make_mesh, shard_index_arrays
+    from shazam_tpu_torch.parallel.multihost import (
+        SpannedCatalog, distributed_ingest_arrays)
+    from shazam_tpu_torch.parallel.sequence import \
+        sequence_parallel_fingerprint
+    from shazam_tpu_torch.parallel.serving import (ShardedCatalog,
+                                                   ShardedRecognizer)
+    from shazam_tpu_torch.parallel.sharded import (sharded_ingest_step,
+                                                   sharded_match_query)
+
+    on_card = dist.get_backend() == "nccl"
+    mesh = make_mesh(world, device="cuda" if on_card else "cpu")
+    dev = mesh.device
+    ix = from_numpy(*cols, n_songs=len(songs) + 1,
+                    max_offset=int(cols[4].max()))
+    q = QueryPairs(*q)
+    qcols = [getattr(q, c) for c in ("hi", "lo", "ex", "t", "valid", "first")]
+    kw = dict(delta_min=-1024, delta_range=4096 + 2048, topn=3)
+    out = {}
+    for cap in (65536, 300):   # the second clamps the shards' expansions
+        raw = sharded_match_query(mesh, shard_index_arrays(ix, world), *qcols,
+                                  n_songs=ix.n_songs, match_capacity=cap,
+                                  offset_stride=ix.offset_stride, **kw)
+        stacked, n_local, stride = shard_index_by_song(ix, world)
+        raw_b = sharded_match_by_song(mesh, stacked, n_local, stride, *qcols,
+                                      match_capacity=cap, **kw)
+        out[cap] = [np.asarray(a).tolist() for r in (raw, raw_b)
+                    for a in raw_to_host(r)[0]]
+    rows = np.zeros((world, 1 << 18), np.float32)
+    for i in range(world):
+        rows[i, : 5 * 44100] = songs[i][1][: 5 * 44100]
+    n_valid = np.full(world, 5 * 44100, np.int32)
+    fp = sharded_ingest_step(mesh, rows, n_valid)
+    ref = (fingerprint_batch_fused if on_card else fingerprint_batch)(
+        torch.from_numpy(rows).to(dev), torch.from_numpy(n_valid).to(dev),
+        peak_capacity=4096)
+    out["ingest"] = all(torch.equal(a, b) for a, b in zip(fp, ref))
+    song = songs[2][1].astype(np.float32)
+    pad = np.zeros(-(-len(song) // (world * 2048)) * world * 2048, np.float32)
+    pad[: len(song)] = song
+    seq = sequence_parallel_fingerprint(mesh, pad, len(song))
+    one = fingerprint_samples(torch.from_numpy(pad).to(dev), len(song))
+    out["sequence"] = all(torch.equal(a, b) for a, b in zip(seq, one))
+    sia = SIA(device=dev)
+    sia.ingest_arrays(songs)
+    clip = songs[3][1][44100: 6 * 44100]
+    for limit in (1 << 30, 1):
+        rec = ShardedRecognizer(ShardedCatalog(
+            sia.index, mesh=mesh, catalog=sia.catalog,
+            dense_limit_bytes=limit))
+        if mesh.rank:
+            out[limit] = rec.follow()
+            continue
+        try:
+            got = rec.recognize_samples([clip], topn=3)["results"]
+        finally:
+            rec.close()
+        out[limit] = (got == sia.recognize_samples([clip], topn=3)["results"],
+                      got[0]["song_name"])
+    cat, local = distributed_ingest_arrays(
+        [name for name, _ in songs], lambda s: songs[s][1], mesh=mesh)
+    q = prepare_query_of(local, clip)
+    with tempfile.TemporaryDirectory() as tmp:
+        cat.save_local_shards(tmp)
+        back = SpannedCatalog.load_local_shards(tmp, mesh=mesh)
+        answers = [c.match(q, topn=2).results for c in (cat, back)]
+    out["spanned"] = (answers[0] == answers[1], answers[0][0]["song_id"])
+    return out
+
+
+def prepare_query_of(sia, clip):
+    from shazam_tpu_torch.match.prepare import prepare_query
+
+    return prepare_query([sia._fingerprint_channel(clip)])
+
+
+def test_four_ranks_over_nccl_equal_gloo(cuda, tmp_path):
+    """The sharded path at 4 ranks over NCCL, one card each, against the
+    same 4 ranks over gloo on the CPU (which the CPU tests hold against
+    the JAX package): key-range and by-song matches (one clamped) equal
+    value for value; on each backend the ingest step equal to its
+    device's pipeline, sequence parallel to the single-device one, the
+    recognizer (3 ranks following) to the SIA, and distributed ingest's
+    answers after a shard-file round trip. Needs 4 cards; one skips it."""
+    from shazam_tpu_torch.api import SIA
+    from tests.test_torch_sharding import spawn_ranks
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards")
+    songs = [(f"s{i}", synth_song(i, 8.0, seed=4)) for i in range(8)]
+    sia = SIA(device="cpu")
+    sia.ingest_arrays(songs)
+    q = prepare_query_of(sia, songs[3][1][44100: 6 * 44100])
+    cols = tuple(getattr(sia.index, c) for c in (
+        "key_hi", "key_lo", "key_ex", "song_id", "offset"))
+    args = (songs, cols, tuple(q))
+    got = spawn_ranks(_four_rank_work, 4, tmp_path / "nccl", *args,
+                      backend="nccl", timeout=300.0)
+    want = spawn_ranks(_four_rank_work, 4, tmp_path / "gloo", *args,
+                       timeout=300.0)
+    assert got == want
+    assert got[0][1 << 30] == (True, "s3") and got[0][1] == (True, "s3")
+    assert got[1][1 << 30] == {"matches": 1, "errors": 0}
+    assert all(r["ingest"] and r["sequence"] and r["spanned"] == (True, 3)
+               for r in got)

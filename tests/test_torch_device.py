@@ -30,6 +30,22 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import shazam_tpu_torch.cli, shazam_tpu_torch.tools.fsck\n"
         "import shazam_tpu_torch.tools.stats, shazam_tpu_torch.tools.sanity\n"
         "import shazam_tpu_torch.match.apriori, shazam_tpu_torch.index.registry\n"
+        "import shazam_tpu_torch.parallel.mesh, shazam_tpu_torch.parallel.sharded\n"
+        "import shazam_tpu_torch.parallel.bigcatalog, shazam_tpu_torch.parallel.serving\n"
+        "import shazam_tpu_torch.parallel.sequence, shazam_tpu_torch.parallel.multihost\n"
+        "from shazam_tpu_torch import parallel as P\n"
+        "for mod, names in (\n"
+        "        (P.mesh, ('make_mesh', 'shard_index_arrays', 'SHARD_AXIS')),\n"
+        "        (P.sharded, ('sharded_match_query', 'sharded_ingest_step',\n"
+        "                     'effective_match_capacity', 'sharded_match_apriori')),\n"
+        "        (P.bigcatalog, ('pack_shard_rows', 'shard_index_by_song',\n"
+        "                        'sharded_match_by_song', 'effective_match_capacity')),\n"
+        "        (P.serving, ('ShardedCatalog', 'ShardedRecognizer')),\n"
+        "        (P.sequence, ('sequence_parallel_fingerprint',)),\n"
+        "        (P.multihost, ('init_multihost', 'global_mesh', 'SpannedCatalog',\n"
+        "                       'distributed_ingest_arrays'))):\n"
+        "    for name in names:\n"
+        "        assert hasattr(mod, name), (mod.__name__, name)\n"
         "from shazam_tpu_torch.api import SIA\n"
         "for name in ('ingest_files', 'ingest_directory', 'ingest_channels',\n"
         "             'recognize_file', 'recognize_batch', 'prepare_batch',\n"
@@ -103,6 +119,26 @@ def _stream_engine(cls_name):
     return make
 
 
+def _mesh():
+    from shazam_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh()
+
+
+def _global_mesh():
+    from shazam_tpu_torch.parallel.multihost import global_mesh
+
+    return global_mesh()
+
+
+def _sharded_recognizer():
+    from shazam_tpu_torch.index.store import build_index
+    from shazam_tpu_torch.parallel.serving import (ShardedCatalog,
+                                                   ShardedRecognizer)
+
+    return ShardedRecognizer(ShardedCatalog(build_index([], n_songs=0)))
+
+
 def _cli_stats():
     import tempfile
 
@@ -116,12 +152,15 @@ def _cli_stats():
 @pytest.mark.parametrize("entry", [
     _sia, _resident_sia, _spanned_sia, _memory_backend, _fingerprint,
     _stream_engine("IncrementalFingerprinter"),
-    _stream_engine("DeviceIncrementalFingerprinter"), _cli_stats])
+    _stream_engine("DeviceIncrementalFingerprinter"), _cli_stats, _mesh,
+    _global_mesh, _sharded_recognizer])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
-    """No card: the default device raises instead of running on the CPU."""
+    """No card: the default device raises instead of running on the CPU
+    (the sharded entry points before any process group starts)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         entry()
+    assert not torch.distributed.is_initialized()
 
 
 def test_entry_points_run_on_the_cpu_when_asked(monkeypatch):

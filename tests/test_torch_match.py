@@ -141,3 +141,33 @@ def test_npz_loads_in_both_packages(indexes, tmp_path):
     fx = store.from_numpy(jix.key_hi, jix.key_lo, jix.key_ex, jix.song_id,
                           jix.offset, jix.n_songs, jix.max_offset)
     assert np.array_equal(fx.key_ex, tix.key_ex) and fx.n_songs == N_SONGS
+
+
+@pytest.mark.parametrize("cap", [4096, 300])   # fits; clamps
+def test_match_local_matches_jax(indexes, cap):
+    """The sharded matchers' per-shard votes: histogram, dedup row counts,
+    total and drop count field for field against the JAX package's
+    ``match_local``, on the whole index and on one shard of the JAX
+    key-range layout (padding rows as the port's sentinels)."""
+    from shazam_tpu.match.lookup import match_local as jax_local
+    from shazam_tpu.parallel.mesh import shard_index_arrays as jax_split
+    from shazam_tpu_torch.match.lookup import match_local
+    from shazam_tpu_torch.parallel.mesh import shard_device_index
+
+    jix, tix = indexes
+    q = _queries(jix, seed=cap + 1)
+    kw = dict(n_songs=N_SONGS, delta_min=-128, delta_range=1024 + 256,
+              match_capacity=cap)
+    stride = jix.offset_stride
+    shards = jax_split(jix, 3)
+    for port_ix, jax_cols in (
+            (tix.device_arrays("cpu"), jix.device_arrays()),
+            (shard_device_index([a[1] for a in shards], stride, "cpu"),
+             tuple(jnp.asarray(a[1]) for a in shards))):
+        got = match_local(port_ix, *(_t(a) for a in q), **kw)
+        want = jax_local(jax_cols, *(jnp.asarray(a) for a in q),
+                         offset_stride=stride, **kw)
+        for name, g, w in zip(("hist", "rows_hist", "total", "n_dropped"),
+                              got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w)), name
+    assert int(want[2]) > 0

@@ -1,9 +1,10 @@
-"""Command-line interface: ingest / recognize / stats / fsck / sanity /
-listen / metadata / serve / synth.
+"""Command-line interface: ingest / recognize / bench / stats / fsck /
+sanity / plot / listen / metadata / serve / synth.
 
 The port of ``shazam_tpu/cli.py``. The reference drives everything through
 per-script ``__main__`` blocks with hand-edited config constants
-(``__init__.py:417-432``, ``recognizer.py:355-398``); here the same
+(``__init__.py:417-432``, ``recognizer.py:355-398``,
+``recognizer_test.py:516-614``); here the same
 workflows are argparse subcommands over one persistent catalog+index pair
 (--db PREFIX -> PREFIX.sqlite + PREFIX.npz, the files the JAX package
 reads and writes). Everything runs on the card unless ``--device cpu``
@@ -89,6 +90,31 @@ def _maybe_int(name):
         return -1
 
 
+def cmd_bench(args):
+    from .audio.io import find_files
+    from .bench.harness import BenchConfig, run_recognition_sweep
+
+    sia = _open_sia(args, need_index=True)
+    songs = sorted(p for p, _ in find_files(args.path, args.extensions.split(",")))
+    if args.limit_songs:
+        songs = songs[: args.limit_songs]
+    cfg = BenchConfig(
+        record_seconds=args.seconds,
+        add_noise=args.snr is not None,
+        snr_db=args.snr if args.snr is not None else 0.0,
+        noise_kind="awgn" if args.awgn else "file",
+        noise_file=args.noise_file,
+        channel=args.channel,
+        channel_severity=args.channel_severity,
+        topn=args.topn,
+        seed=args.seed,
+        out_dir=args.out_dir,
+    )
+    summary = run_recognition_sweep(sia, songs, cfg)
+    summary.pop("predicted", None)
+    print(json.dumps(summary, default=str, indent=2))
+
+
 def cmd_stats(args):
     from .tools.stats import dump_song_hash_stats
 
@@ -118,6 +144,21 @@ def cmd_sanity(args):
     out = check_corpus_sanity(files, record_seconds=args.seconds,
                               delete=args.delete)
     print(json.dumps(out, default=str, indent=2))
+
+
+def cmd_plot(args):
+    from .audio.io import read
+    from .config import FingerprintConfig
+    from .tools.plot import plot_constellation
+
+    # honor --config: the plot must show the peaks the PIPELINE extracts
+    cfg = load_config(args.config) if args.config else FingerprintConfig()
+    channels, fs, _ = read(args.file, limit=args.limit)
+    path = plot_constellation(
+        channels[0], args.out, fs=fs, amp_min=cfg.amp_min,
+        radius=cfg.peak_neighborhood_size,
+        title=os.path.basename(args.file), device=args.device)
+    print(json.dumps({"plot": path}))
 
 
 def cmd_listen(args):
@@ -221,6 +262,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a spanned index (implies --device-resident)")
     s.set_defaults(fn=cmd_recognize)
 
+    s = sub.add_parser("bench", help="recognition accuracy/latency sweep")
+    s.add_argument("path", help="corpus folder")
+    s.add_argument("--extensions", default=".wav,.mp3")
+    s.add_argument("--seconds", type=float, default=5.0)
+    s.add_argument("--snr", type=float, default=None,
+                   help="mix noise at this SNR (dB)")
+    s.add_argument("--awgn", action="store_true", help="use AWGN noise")
+    s.add_argument("--noise-file", default=None)
+    s.add_argument("--channel", action="store_true",
+                   help="pass query clips through the synthetic acoustic "
+                        "loop (speaker band-limit, room reverb, soft clip, "
+                        "noise floor — audio/channel.py)")
+    s.add_argument("--channel-severity", type=float, default=1.0,
+                   help="how harsh the channel draws are: 1.0 = stress "
+                        "rig (default), audio.channel.CALIBRATED_SEVERITY "
+                        "matches the reference's real loopback band")
+    s.add_argument("--topn", type=int, default=3)
+    s.add_argument("--seed", type=int, default=1234)
+    s.add_argument("--out-dir", default="bench_out")
+    s.add_argument("--limit-songs", type=int, default=None)
+    s.set_defaults(fn=cmd_bench)
+
     s = sub.add_parser("stats", help="dump per-song hash stats CSV")
     s.add_argument("--out", default="song_hashes.csv")
     s.set_defaults(fn=cmd_stats)
@@ -237,6 +300,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--seconds", type=float, default=5.0)
     s.add_argument("--delete", action="store_true")
     s.set_defaults(fn=cmd_sanity)
+
+    s = sub.add_parser("plot", help="render spectrogram + constellation PNG")
+    s.add_argument("file")
+    s.add_argument("--out", default="constellation.png")
+    s.add_argument("--limit", type=float, default=None)
+    s.set_defaults(fn=cmd_plot)
 
     s = sub.add_parser("listen", help="record from the microphone and identify")
     s.add_argument("--seconds", type=float, default=5.0)

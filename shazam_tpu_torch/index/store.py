@@ -20,12 +20,12 @@ same way).
 from __future__ import annotations
 
 import dataclasses
-import os
-import tempfile
 from typing import Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.persist import atomic_savez
 
 CAPACITY_MULTIPLE = 512
 _SIGN = np.uint64(1 << 63)
@@ -67,31 +67,6 @@ def search_keys(hi: np.ndarray, lo: np.ndarray, ex: np.ndarray):
     run_start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
     key_sub = (run_start.astype(np.int64) << 16) | ex.astype(np.int64)
     return key64, key_sub
-
-
-def atomic_savez(path: str, compress: bool = True, **arrays) -> None:
-    """``np.savez_compressed`` (``np.savez`` when not ``compress``) to a
-    temp file, fsync, then atomic replace (readers see the old file or the
-    new one, never a torn write)."""
-    if not path.endswith(".npz"):
-        path = path + ".npz"
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
-                               suffix=".npz.tmp")
-    try:
-        umask = os.umask(0)
-        os.umask(umask)
-        os.chmod(tmp, 0o666 & ~umask)
-        with os.fdopen(fd, "wb") as fh:
-            (np.savez_compressed if compress else np.savez)(fh, **arrays)
-            fh.flush()
-            os.fsync(fh.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
 
 
 @dataclasses.dataclass

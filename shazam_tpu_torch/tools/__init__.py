@@ -1,4 +1,5 @@
-"""Maintenance tools behind the CLI's ``fsck``, ``stats`` and ``sanity``."""
+"""Maintenance tools behind the CLI's ``fsck``, ``stats`` and ``sanity``
+(``plot``'s tool is ``tools.plot``, which needs matplotlib)."""
 
 from .fsck import check_integrity
 from .sanity import check_corpus_sanity

@@ -1,8 +1,8 @@
 """Port parity for the CLI (shazam_tpu_torch/cli.py) on the CPU.
 
-Mirrors ``tests/test_cli.py`` less ``bench``: drives ``cli.main(argv)``
-in-process over one tmp ``--db`` through the reference's workflows
-(synth corpus -> ingest -> stats -> recognize -> fsck -> sanity ->
+Mirrors ``tests/test_cli.py``: drives ``cli.main(argv)`` in-process over
+one tmp ``--db`` through the reference's workflows (synth corpus ->
+ingest -> stats -> recognize -> fsck -> sanity -> bench sweep ->
 metadata import), every run with ``--device cpu``. Also: ``synth`` writes
 the JAX package's files, flags the port cannot honor are refused, and
 ``serve`` runs as a subprocess that answers and stops on SIGTERM.
@@ -111,10 +111,27 @@ def test_synth_writes_the_jax_corpus(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["bench", "x"], ["plot", "x.wav"]])
-def test_flags_the_port_cannot_honor_are_refused(argv, capsys):
+def test_flags_the_port_cannot_honor_are_refused(argv, tmp_path):
+    """``bench`` and ``plot`` parse (the port has them); a ``--config``
+    the port cannot honor is refused before either reads anything."""
+    args = cli.build_parser().parse_args(argv)
+    assert args.fn is {"bench": cli.cmd_bench, "plot": cli.cmd_plot}[argv[0]]
+    bad = tmp_path / "cfg.json"
+    bad.write_text(json.dumps({"no_such_field": 1}))
     with pytest.raises(SystemExit) as ei:
-        cli.build_parser().parse_args(argv)
-    assert ei.value.code == 2
+        cli.main(["--device", "cpu", "--db", str(tmp_path / "db"),
+                  "--config", str(bad), *argv])
+    assert "fields the port does not honor" in str(ei.value.code)
+
+
+def test_bench_sweep(workspace, capsys):
+    """``tests/test_cli.py::test_sanity_and_bench_sweep``'s bench half."""
+    out_dir = str(workspace["root"] / "bench")
+    out = _run(capsys, "--db", workspace["db"], "bench", workspace["songs"],
+               "--limit-songs", "2", "--seconds", "4", "--seed", "7",
+               "--out-dir", out_dir)
+    assert out["n"] == 2 and out["accuracy"] == 1.0
+    assert any(f.startswith("shazam_results") for f in os.listdir(out_dir))
 
 
 def test_device_resident_ingest_then_recognize(workspace, tmp_path, capsys):

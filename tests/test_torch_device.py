@@ -33,6 +33,10 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import shazam_tpu_torch.parallel.mesh, shazam_tpu_torch.parallel.sharded\n"
         "import shazam_tpu_torch.parallel.bigcatalog, shazam_tpu_torch.parallel.serving\n"
         "import shazam_tpu_torch.parallel.sequence, shazam_tpu_torch.parallel.multihost\n"
+        "import shazam_tpu_torch.audio.noise, shazam_tpu_torch.audio.channel\n"
+        "import shazam_tpu_torch.audio.synth_device, shazam_tpu_torch.bench\n"
+        "import shazam_tpu_torch.utils, shazam_tpu_torch.utils.persist\n"
+        "import shazam_tpu_torch.tools.plot\n"
         "from shazam_tpu_torch import parallel as P\n"
         "for mod, names in (\n"
         "        (P.mesh, ('make_mesh', 'shard_index_arrays', 'SHARD_AXIS')),\n"
@@ -139,6 +143,22 @@ def _sharded_recognizer():
     return ShardedRecognizer(ShardedCatalog(build_index([], n_songs=0)))
 
 
+def _music_gen():
+    from shazam_tpu_torch.audio.synth_device import make_music_gen
+
+    return make_music_gen(1.0)
+
+
+def _plot():
+    import tempfile
+
+    from shazam_tpu_torch.tools.plot import plot_constellation
+
+    with tempfile.TemporaryDirectory() as tmp:
+        plot_constellation(np.zeros(8192, np.int16),
+                           os.path.join(tmp, "c.png"))
+
+
 def _cli_stats():
     import tempfile
 
@@ -153,7 +173,7 @@ def _cli_stats():
     _sia, _resident_sia, _spanned_sia, _memory_backend, _fingerprint,
     _stream_engine("IncrementalFingerprinter"),
     _stream_engine("DeviceIncrementalFingerprinter"), _cli_stats, _mesh,
-    _global_mesh, _sharded_recognizer])
+    _global_mesh, _sharded_recognizer, _music_gen, _plot])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """No card: the default device raises instead of running on the CPU
     (the sharded entry points before any process group starts)."""

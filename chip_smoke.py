@@ -142,15 +142,34 @@ Phases (each raises on failure; any failure exits non-zero):
    answer right and as before, their p50 printed. Its launches pass a
    ``ShapeAudit`` as phase 6's do;
 8. spans, on phase 7's catalog: ``SIA(device_span_rows=2^22)`` from the
-   host-backed SIA's index and a copy of its catalog ingests one device
-   batch of 16 new 30 s songs (16, 1,572,864); ``save_index`` writes the
-   span-wise file of the JAX package; fresh SIAs load it spanned (straight
-   onto the device store, no host sort), spanned with ``stacked=True`` and
-   plain (flattened on the host). Each must hold the spanned SIA's rows
-   and give its answers, identical and right, to 8 15 s clips (4 of the
-   new songs, 4 of phase 4's); save and load seconds are printed. K1-K3
-   must launch, and their first launch at each shape passes a
-   ``ShapeAudit``;
+   host-backed SIA's index and a copy of its catalog (a
+   ``SpannedDeviceStore`` of 2^22-row spans, their number printed) ingests
+   one device batch of 16 new 30 s songs (16, 1,572,864); its rows must
+   equal, row for row, a flat device-resident SIA's from the same index
+   and batch. ``save_index`` writes the span-wise file of the JAX package;
+   fresh SIAs load it spanned (upload only, no sort), spanned with
+   ``stacked=True`` and plain (flattened on the host). Each must hold the
+   spanned SIA's rows and answer 8 15 s clips (4 of the new songs, 4 of
+   phase 4's) right: the per-span load with its answers identical, the
+   stacked and plain SIAs and the flat store, whose expansions clamp
+   elsewhere, with its answers by phase 5's rule; save and load seconds
+   are printed. Then ``consolidate_index()`` stacks the spans, the 8
+   clips must answer alike again, and a further ``ingest_device_batch``
+   must raise the JAX package's "consolidated" refusal. The spanned scale probe follows
+   (its own phase, after phase 7's flat store was dropped and the
+   allocator's cache emptied): a ``SpannedDeviceStore`` of 2^24-row spans
+   from the host-backed SIA's index grows with random rows (song ids past
+   the catalog) to 2^30 = 1,073,741,824 rows in 64 spans; at 2^26, 2^28,
+   436,207,616 (the span boundary under the reference's 436,682,654) and
+   2^30 rows one sorted 1,048,576-row run is timed (CUDA events) through
+   ``merge_device_run`` into the active span, 15/16 full, and from the
+   same state ``append_run`` + ``finalize`` (rows equal), then the
+   ``query_cols()`` refresh, with the peak device memory since the last
+   point; at 2^30 rows 8 catalog clips must answer right through a
+   spanned SIA over the store, and again after ``consolidate()`` (its
+   seconds and peak printed), alike, both clip p50s printed. K1-K3 must
+   launch in phase 8 and in the probe, and their first launch at each
+   shape passes a ``ShapeAudit``;
 9. parallel, on phase 7's host-backed SIA (2,842 songs and more):
    ``shazam_tpu_torch/parallel`` at one rank per card, a one-rank NCCL
    group from ``make_mesh`` (its backend and size printed), in the order
@@ -294,6 +313,12 @@ APRIORI_BATCH = 1024
 SPAN_ROWS = 1 << 22
 SPAN_SONGS = 16
 SPAN_CLIPS = 8
+# the spanned scale probe: spans of SPAN_PROBE_ROWS grown to the last of
+# SPAN_PROBE_AT (2^30 rows, 64 spans), one PROBE_RUN-row run timed at each
+# (its span boundary at or below: the run lands in a span 15/16 full)
+SPAN_PROBE_ROWS = 1 << 24
+SPAN_PROBE_AT = (1 << 26, 1 << 28, REFERENCE_ROWS, 1 << 30)
+SPAN_PROBE_CLIPS = 8
 # phase 9: the sharded path (parallel/*) at one rank per card
 PARALLEL_CLIPS = 16
 PARALLEL_EARLY_CLIPS = 8
@@ -2048,6 +2073,26 @@ def _random_run(n: int, device, sid0: int, n_sids: int, max_off: int,
     return key64, ex, sid * stride + off
 
 
+def _timed_ms(fn, dev):
+    """(result, device ms by CUDA events, wall ms) of ``fn()``; off the card
+    the wall ms stands in for both (a rehearsal's number, never a device
+    time)."""
+    import torch
+
+    _sync(dev)
+    t = time.perf_counter()
+    if dev.type != "cuda":
+        out = fn()
+        wall = 1e3 * (time.perf_counter() - t)
+        return out, wall, wall
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), 1e3 * (time.perf_counter() - t)
+
+
 def _scale_probe(res, seed: int) -> dict:
     """Phase 7's scale probe: grow the store with random rows (song ids
     past the catalog) to 2^27 rows; at the start and at PROBE_AT, time one
@@ -2069,22 +2114,6 @@ def _scale_probe(res, seed: int) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
-    def timed(fn):
-        """(result, device ms by CUDA events, wall ms); off the card the
-        wall ms stands in for both."""
-        _sync(dev)
-        t = time.perf_counter()
-        if dev.type != "cuda":
-            out = fn()
-            wall = 1e3 * (time.perf_counter() - t)
-            return out, wall, wall
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        out = fn()
-        b.record()
-        torch.cuda.synchronize()
-        return out, a.elapsed_time(b), 1e3 * (time.perf_counter() - t)
-
     def checkpoint():
         run = _random_run(PROBE_RUN, dev, sid0, 1024, 640, store.stride, gen)
         order = lexsort_rows(*run)
@@ -2092,20 +2121,20 @@ def _scale_probe(res, seed: int) -> dict:
         n0 = store.n_valid
         store._view = None
         saved = (store.cols, store.n_valid, store._sorted_rows, None)
-        _, merge_ms, merge_wall = timed(lambda: store.merge_device_run(
-            run, PROBE_RUN, sid0 + 1024, 640))
+        _, merge_ms, merge_wall = _timed_ms(lambda: store.merge_device_run(
+            run, PROBE_RUN, sid0 + 1024, 640), dev)
         merged = store.cols
         store.cols, store.n_valid, store._sorted_rows, store._view = saved
-        _, append_ms, _ = timed(lambda: store.append_run(
-            run, PROBE_RUN, sid0 + 1024, 640))
-        _, finalize_ms, finalize_wall = timed(store.finalize)
+        _, append_ms, _ = _timed_ms(lambda: store.append_run(
+            run, PROBE_RUN, sid0 + 1024, 640), dev)
+        _, finalize_ms, finalize_wall = _timed_ms(store.finalize, dev)
         n = store.n_valid
         if n != n0 + PROBE_RUN or not all(
                 torch.equal(a[:n], b[:n]) for a, b in zip(store.cols, merged)):
             raise AssertionError(f"scale probe at {n0} rows: append_run + "
                                  "finalize differs from merge_device_run")
         del merged, saved
-        _, view_ms, _ = timed(store.query_cols)
+        _, view_ms, _ = _timed_ms(store.query_cols, dev)
         rec = {"rows_before": n0, "rows_after": n, "capacity": store.capacity,
                "merge_device_run_ms": merge_ms, "merge_wall_ms": merge_wall,
                "append_run_ms": append_ms, "finalize_ms": finalize_ms,
@@ -2361,9 +2390,13 @@ def spans(sia, big_clips, first_id: int) -> dict:
     of SPAN_SONGS new songs, ``save_index`` writes the span-wise file, and
     fresh SIAs load it spanned (straight onto the store), spanned with
     ``stacked=True`` and plain (flattened on the host): each must hold the
-    spanned SIA's rows and give its answers, identical, to SPAN_CLIPS
-    clips (half of the new songs, half of phase 4's). Save and load
-    seconds are recorded."""
+    spanned SIA's rows and answer SPAN_CLIPS clips (half of the new songs,
+    half of phase 4's) right, the per-span load identically, the others
+    by phase 5's rule. The rows must equal a flat device-resident SIA's
+    from the same index and batch, and its answers be alike by phase 5's
+    rule. Then ``consolidate_index()``: the same clips alike again, and a
+    further ingest refused. Save, load and consolidate seconds are
+    recorded."""
     import tempfile
 
     import torch
@@ -2390,13 +2423,21 @@ def spans(sia, big_clips, first_id: int) -> dict:
     x = torch.from_numpy(mat).to(dev).to(torch.float32)
     _sync(dev)
     t = time.perf_counter()
-    st = sp.ingest_device_batch([f"song{i:05d}" for i in ids], x,
-                                [len(songs[i]) for i in ids])
+    names = [f"song{i:05d}" for i in ids]
+    lengths = [len(songs[i]) for i in ids]
+    st = sp.ingest_device_batch(names, x, lengths)
     _sync(dev)
     out["ingest_ms"] = 1e3 * (time.perf_counter() - t)
     if st["ingested"] != SPAN_SONGS or st["overflowed"]:
         raise AssertionError(f"spanned ingest_device_batch: {st}")
     rows = sp.index
+    # the flat device store from the same index and the same batch
+    flat = SIA(index=sia.index, device_resident=True, device=dev)
+    sia.catalog.conn.backup(flat.catalog.conn)
+    flat.ingest_device_batch(names, x, lengths)
+    flat_rows_equal = _rows_equal(flat.index, rows)
+    store = sp._dev_store
+    out["store_spans"] = sum(s_.n_valid > 0 for s_ in store.spans)
 
     clip_len = int(BIG_CLIP_S * FS)
     max_frame = (int(30.0 * FS) - clip_len) // HOP
@@ -2445,22 +2486,222 @@ def spans(sia, big_clips, first_id: int) -> dict:
                                      f"{r['results'][:1]}")
             answers[label].append(_answer(r))
         p50[label] = float(np.median(lat))
-    identical = {k: v == answers["spanned"] for k, v in answers.items()}
-    print(f"spans: {rows.n_hashes} rows in {n_spans} spans of {SPAN_ROWS}; "
-          f"from_host {out['from_host_s']:.3f} s, ingest_device_batch of "
+    # the per-span stores must answer identically; the stacked layout
+    # (one joint budget), the plain index and the flat device store clamp
+    # a clip's expansion elsewhere, so they are held by phase 5's rule
+    exact = {}
+
+    def alike(got):
+        return [(j, answers["spanned"][j], a) for j, a in enumerate(got)
+                if not _held_to_solo(sp, [jobs[j][2]], answers["spanned"],
+                                     exact, j, a)]
+
+    answers["flat"] = [_answer(flat.recognize_clip(c)) for _s, _f, c in jobs]
+    identical = {k: sum(a == b for a, b in zip(v, answers["spanned"]))
+                 for k, v in answers.items()}
+    differ = {k: alike(v) for k, v in answers.items()}
+    print(f"spans: {rows.n_hashes} rows in {out['store_spans']} spans of "
+          f"{SPAN_ROWS} ({n_spans} in the file); from_host "
+          f"{out['from_host_s']:.3f} s, ingest_device_batch of "
           f"{SPAN_SONGS} songs {out['ingest_ms']:.3f} ms; save_index "
           f"{out['save_s']:.3f} s ({out['file_mb']:.1f} MB); load_index "
           + ", ".join(f"{k} {v:.3f} s" for k, v in out["load_s"].items())
-          + f"; rows equal {same_rows}; {len(jobs)} clips right, answers "
-          f"identical {identical}; recognize_clip p50 ms "
+          + f"; rows equal {same_rows}, to the flat store {flat_rows_equal}; "
+          f"{len(jobs)} clips right, answers identical to the spanned SIA's "
+          f"{identical}, the rest equal by phase 5's rule (exact counts "
+          f"taken {len(exact)}); recognize_clip p50 ms "
           + ", ".join(f"{k} {v:.3f}" for k, v in p50.items()), flush=True)
-    if not (all(same_rows.values()) and all(identical.values())):
-        raise AssertionError("spanned round trip differs")
-    out.update(rows=rows.n_hashes, spans=n_spans, clip_p50_ms=p50)
-    for s_ in sias.values():
+    if not (all(same_rows.values()) and flat_rows_equal
+            and identical["loaded"] == len(jobs)
+            and not any(differ.values())):
+        raise AssertionError(f"spanned round trip differs: {differ}")
+
+    # consolidate: the same answers from the stacked layout, then ingest
+    # refused as in the JAX package
+    t = time.perf_counter()
+    sp.consolidate_index()
+    _sync(dev)
+    out["consolidate_s"] = time.perf_counter() - t
+    stacked_answers = [_answer(sp.recognize_clip(c)) for _s, _f, c in jobs]
+    differ = alike(stacked_answers)
+    same = sum(a == b for a, b in zip(stacked_answers, answers["spanned"]))
+    try:
+        sp.ingest_device_batch([f"{names[0]}_late"], x[:1], lengths[:1])
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    print(f"consolidate_index: {len(store._stacked_valids)} spans stacked in "
+          f"{out['consolidate_s']:.3f} s; {len(jobs)} clips alike by phase "
+          f"5's rule, {same} identical; a further ingest_device_batch: "
+          f"{refusal!r}", flush=True)
+    if not (store.is_stacked and not differ and refusal
+            and "consolidated" in refusal):
+        raise AssertionError(f"consolidated spanned store differs: {differ}")
+    out.update(rows=rows.n_hashes, spans=n_spans, clip_p50_ms=p50,
+               identical=identical, consolidated_identical=same)
+    for s_ in (*sias.values(), flat):
         s_._dev_store = None
         s_._device_index = None
     if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def spanned_probe(sia, big_clips, seed: int) -> dict:
+    """The spanned scale probe, after phase 8: a ``SpannedDeviceStore`` of
+    SPAN_PROBE_ROWS-row spans from the host-backed SIA's index grows with
+    random rows (song ids past the catalog) to 2^30 rows in 64 spans. At
+    each of SPAN_PROBE_AT (at its span boundary) one sorted PROBE_RUN-row
+    run is timed (CUDA events) through ``merge_device_run`` into the
+    active span, 15/16 full, and, from the same state, ``append_run`` +
+    ``finalize`` (rows equal), then the ``query_cols()`` refresh; the peak
+    device memory since the last point is recorded. At 2^30 rows
+    SPAN_PROBE_CLIPS catalog clips must answer right through a spanned SIA
+    over the store, then ``consolidate()`` (its seconds and peak) and the
+    same clips again, alike. No query holds the active span's view here,
+    so it is dropped before each write."""
+    import torch
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.index.devmerge import SpannedDeviceStore, lexsort_rows
+
+    dev = sia.device
+    on_card = dev.type == "cuda"
+    sia._device_index = None
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_mib():
+        if not on_card:
+            return None
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        return peak
+
+    t0 = time.perf_counter()
+    store = SpannedDeviceStore.from_host(sia.index, SPAN_PROBE_ROWS, device=dev)
+    _sync(dev)
+    out = {"from_host_s": time.perf_counter() - t0, "points": {}}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 14)
+    sid0 = store.n_songs + 16
+
+    def random_rows(n):
+        return _random_run(n, dev, sid0, 1024, 640, store.stride, gen)
+
+    def grow(total):
+        """Append random rows, filling each span, up to ``total`` rows."""
+        while store.n_valid < total:
+            room = store.span_rows - store.active.n_valid
+            n = min(room or store.span_rows, total - store.n_valid)
+            store.active._view = None
+            store.append_run(random_rows(n), n, sid0 + 1024, 640)
+
+    def checkpoint():
+        run = random_rows(PROBE_RUN)
+        order = lexsort_rows(*run)
+        run = tuple(c[order] for c in run)
+        span, n_spans, n0 = store.active, len(store.spans), store.n_valid
+        span._view = None
+        saved = (span.cols, span.n_valid, span._sorted_rows)
+        _, merge_ms, merge_wall = _timed_ms(lambda: store.merge_device_run(
+            run, PROBE_RUN, sid0 + 1024, 640), dev)
+        if store.active is not span or len(store.spans) != n_spans:
+            raise AssertionError("the probe's run left the active span")
+        merged = span.cols
+        span.cols, span.n_valid, span._sorted_rows = saved
+        span._view = None
+        _, append_ms, _ = _timed_ms(lambda: store.append_run(
+            run, PROBE_RUN, sid0 + 1024, 640), dev)
+        _, finalize_ms, finalize_wall = _timed_ms(store.finalize, dev)
+        if store.n_valid != n0 + PROBE_RUN or not all(
+                torch.equal(a, b) for a, b in zip(span.cols, merged)):
+            raise AssertionError(f"spanned probe at {n0} rows: append_run + "
+                                 "finalize differs from merge_device_run")
+        del merged, saved
+        _, view_ms, _ = _timed_ms(store.query_cols, dev)
+        rec = {"rows_before": n0, "rows_after": store.n_valid,
+               "spans": len(store.spans), "active_rows_before":
+               n0 - (len(store.spans) - 1) * store.span_rows,
+               "merge_device_run_ms": merge_ms, "merge_wall_ms": merge_wall,
+               "append_run_ms": append_ms, "finalize_ms": finalize_ms,
+               "finalize_wall_ms": finalize_wall,
+               "query_cols_refresh_ms": view_ms, "peak_device_mib": peak_mib()}
+        print(f"spanned probe at {n0} rows ({rec['spans']} spans, the active "
+              f"one {rec['active_rows_before']} rows): merge_device_run of "
+              f"{PROBE_RUN} rows {merge_ms:.3f} ms (wall {merge_wall:.3f}); "
+              f"append_run {append_ms:.3f} ms + finalize {finalize_ms:.3f} ms "
+              f"(wall {finalize_wall:.3f}), rows equal; query_cols refresh "
+              f"{view_ms:.3f} ms; peak device memory {rec['peak_device_mib']}"
+              " MiB", flush=True)
+        return rec
+
+    grow_s = build_ms = 0.0
+    for target in SPAN_PROBE_AT:
+        t = time.perf_counter()
+        grow(target // store.span_rows * store.span_rows - PROBE_RUN)
+        _sync(dev)
+        grow_s += time.perf_counter() - t
+        # the sealed spans' views, built once (only the active span's is
+        # rebuilt after an ingest)
+        build_ms += _timed_ms(store.query_cols, dev)[1]
+        out["points"][str(target)] = checkpoint()
+    if store.n_valid != SPAN_PROBE_AT[-1] or len(store.spans) != \
+            SPAN_PROBE_AT[-1] // store.span_rows:
+        raise AssertionError(f"spanned probe ended at {store.n_valid} rows in "
+                             f"{len(store.spans)} spans")
+    out.update(grow_s=grow_s, query_cols_build_ms=build_ms,
+               rows=store.n_valid, spans=len(store.spans))
+
+    # 8 catalog clips through a spanned SIA over the store, per span and
+    # stacked
+    sp = SIA(device_span_rows=SPAN_PROBE_ROWS, device=dev)
+    sia.catalog.conn.backup(sp.catalog.conn)
+    sp._dev_store, sp._host_stale = store, True
+    jobs = big_clips[:SPAN_PROBE_CLIPS]
+
+    def answer_all(label):
+        sp.recognize_clip(jobs[0][2])       # warm-up
+        got, lat = [], []
+        for sid, frame, c in jobs:
+            t = time.perf_counter()
+            r = sp.recognize_clip(c)
+            lat.append(1e3 * (time.perf_counter() - t))
+            if not _right(r, sid, frame * HOP / FS):
+                raise AssertionError(f"{label} at {store.n_valid} rows: clip "
+                                     f"of {sid} wrong: {r['results'][:1]}")
+            got.append(_answer(r))
+        return got, float(np.median(lat))
+
+    per_span, p50_spans = answer_all("per span")
+    t = time.perf_counter()
+    _, cons_ms, _ = _timed_ms(store.consolidate, dev)
+    out["consolidate_s"] = time.perf_counter() - t
+    out["consolidate_ms"] = cons_ms
+    out["consolidate_peak_device_mib"] = peak_mib()
+    stacked, p50_stacked = answer_all("stacked")
+    exact = {}
+    alike = all(_held_to_solo(sp, [jobs[j][2]], per_span, exact, j, a)
+                for j, a in enumerate(stacked))
+    same = sum(a == b for a, b in zip(per_span, stacked))
+    out.update(clip_p50_ms={"per_span": p50_spans, "stacked": p50_stacked},
+               identical=same, host_staged=store.host_staged,
+               seconds=time.perf_counter() - t0)
+    print(f"spanned probe: {store.n_valid} rows in {out['spans']} spans of "
+          f"{SPAN_PROBE_ROWS}; growth {grow_s:.3f} s, views built "
+          f"{build_ms:.3f} ms; consolidate {out['consolidate_s']:.3f} s "
+          f"(events {cons_ms:.3f} ms, host-staged {store.host_staged}), peak "
+          f"device memory {out['consolidate_peak_device_mib']} MiB; "
+          f"{len(jobs)} clips right in both layouts, alike {alike} ({same} "
+          f"identical), recognize_clip p50 per span {p50_spans:.3f} ms, "
+          f"stacked {p50_stacked:.3f} ms; {out['seconds']:.3f} s", flush=True)
+    if not alike:
+        raise AssertionError(f"stacked answers differ: {per_span[:2]} "
+                             f"{stacked[:2]}")
+    sp._dev_store = None
+    del sp, store
+    if on_card:
         torch.cuda.empty_cache()
     return out
 
@@ -3140,6 +3381,20 @@ def main(argv=None) -> int:
 
     spans_out, launches_spans = launched("spans", spanned)
 
+    def spanned_scale():
+        with ShapeAudit(sia.config) as audit:
+            out = spanned_probe(sia, big_clips, args.seed)
+        out["twin_audit"] = audit.check()
+        print("the spanned probe's first launch at each shape equal to its "
+              "plain twin (K1 in dB): " + "; ".join(
+                  f"{name} at {[k for k, _ in v]}, max err "
+                  f"{max((e for _, e in v), default=0)}"
+                  for name, v in out["twin_audit"].items()), flush=True)
+        return out
+
+    span_probe_out, launches_span_probe = launched("spanned scale probe",
+                                                   spanned_scale)
+
     def sharded():
         with ShapeAudit(sia.config) as audit:
             out = parallel(sia, big_clips, args.big_songs + args.file_songs
@@ -3181,6 +3436,7 @@ def main(argv=None) -> int:
             "launches_serve_stream": launches_serve[name],
             "launches_device_resident": launches_resident[name],
             "launches_spans": launches_spans[name],
+            "launches_spanned_probe": launches_span_probe[name],
             "launches_parallel": launches_parallel[name],
             "launches_sweep": launches_sweep[name],
             "max_abs_err": max(r["err"] for r in m.values()),
@@ -3195,6 +3451,7 @@ def main(argv=None) -> int:
                       "big_catalog": big, "files_and_batches": files,
                       "serve_and_stream": served,
                       "device_resident": resident_out, "spans": spans_out,
+                      "spanned_probe": span_probe_out,
                       "parallel": parallel_out, "sweep": sweep_out},
                      default=str),
           flush=True)

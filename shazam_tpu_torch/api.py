@@ -35,11 +35,13 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   results equal ``recognize_samples`` on each clip alone.
 - ``save_index``/``load_index``: the JAX package's flat ``.npz`` format;
   ``load_index`` also reads its span-wise files, flattened on the host.
-- ``SIA(device_span_rows=N)``: the JAX package's spanned store as its API
-  and file format over the flat device store: ``save_index`` writes the
-  span-wise format, ``load_index`` uploads such a file straight into the
-  store (``stacked=True`` gives the same store), ``consolidate_index`` has
-  nothing to stack.
+- ``SIA(device_span_rows=N)``: the index in ``index/devmerge.
+  SpannedDeviceStore``, spans of N rows on the device; every match
+  searches all spans (``_match_prepared_spanned``,
+  ``_recognize_clip_spanned``, the batch through
+  ``match_queries_batched_spanned``); ``consolidate_index`` stacks the
+  spans into the serving layout (closed to ingest); ``save_index`` /
+  ``load_index(stacked=...)`` write and read the span-wise file.
 - ``recognize_samples`` / ``recognize_file(early_exit=True)``: the
   reference's apriori early exit (``match/apriori.py``) under
   ``sparse_vote_threshold``; past it, or on a spanned SIA, a warning and
@@ -78,17 +80,21 @@ from .config import DEFAULT_CONFIG, FingerprintConfig
 from .device import resolve_device
 from .index.catalog import SongCatalog
 from .index.devingest import device_sorted_run
-from .index.devmerge import (DeviceIndex as DeviceStore, capacity_for,
-                             check_spanned, is_spanned_file, load_spanned,
-                             load_spanned_flat, packed_stride_for,
-                             save_spanned)
+from .index.devmerge import (DeviceIndex as DeviceStore, SpannedDeviceStore,
+                             capacity_for, is_spanned_file, load_spanned_flat,
+                             packed_stride_for)
 from .index.store import DeviceIndex, FingerprintIndex, build_index, merge_into
 from .match.align import align_results
 from .match.apriori import match_query_apriori_ondevice
 from .match.batched import (batched_raw_to_host, match_queries_batched,
+                            match_queries_batched_spanned,
                             query_totals_batched)
-from .match.lookup import RawMatch, match_by_rank, query_total, raw_to_host
-from .match.ondevice import fingerprint_probe_on_device, recognize_on_device
+from .match.lookup import (RawMatch, _is_stacked, match_by_rank,
+                           match_query_pruned_spanned,
+                           match_query_sparse_spanned, query_total,
+                           query_total_spanned, raw_to_host)
+from .match.ondevice import (fingerprint_probe_on_device, recognize_on_device,
+                             recognize_on_device_spanned)
 from .match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
 from .ops.fingerprint import (Fingerprints, fingerprint_batch,
                               fingerprint_batch_fused, fused_takes,
@@ -193,10 +199,11 @@ class SIA:
     device; ``device_reserve_hashes`` preallocates its capacity. The host
     index is then synced from the store when read.
     ``device_span_rows=N`` implies it and makes the SIA spanned, as in the
-    JAX package: ``save_index`` writes the span-wise format in chunks of N
-    rows, ``load_index`` uploads such files straight into the store, and
-    the store refuses what the JAX package's spanned store refuses (checked
-    on first device use). The store itself stays one flat sorted run.
+    JAX package: the store is a ``SpannedDeviceStore`` of N-row spans,
+    built on first device use (spans under 4,096 rows and catalogs whose
+    payload does not pack into uint32 are refused then), ``save_index``
+    writes and ``load_index`` reads its span-wise files, and
+    ``consolidate_index`` stacks it for serving.
 
     The parameters are the JAX package's, in its order; ``device`` is the
     port's own.
@@ -259,17 +266,24 @@ class SIA:
         store = self._dev_store
         return store.n_valid if store is not None else self._index.n_hashes
 
-    def _ensure_dev_store(self) -> DeviceStore:
-        """The device store, built from the host index on first use."""
+    @property
+    def _is_spanned(self) -> bool:
+        return bool(self.device_resident and self.device_span_rows)
+
+    def _ensure_dev_store(self):
+        """The device store (a ``SpannedDeviceStore`` when spanned), built
+        from the host index on first use."""
         with self._upload_lock:
             if self._dev_store is None:
-                if self.device_span_rows:
-                    ix = self.index
-                    check_spanned(self.device_span_rows, ix.n_songs,
-                                  ix.max_offset, ix.n_hashes)
-                self._dev_store = DeviceStore.from_host(
-                    self.index, reserve=self.device_reserve_hashes,
-                    device=self.device)
+                if self._is_spanned:
+                    self._dev_store = SpannedDeviceStore.from_host(
+                        self.index, span_rows=self.device_span_rows,
+                        reserve=self.device_reserve_hashes,
+                        device=self.device)
+                else:
+                    self._dev_store = DeviceStore.from_host(
+                        self.index, reserve=self.device_reserve_hashes,
+                        device=self.device)
             return self._dev_store
 
     def _absorb_addition(self, addition: FingerprintIndex) -> None:
@@ -278,14 +292,7 @@ class SIA:
         query), or, device-resident, into the store on the device."""
         with self._upload_lock:
             if self.device_resident:
-                store = self._ensure_dev_store()
-                if self.device_span_rows:
-                    check_spanned(
-                        self.device_span_rows,
-                        max(store.n_songs, addition.n_songs),
-                        max(store.max_offset, addition.max_offset),
-                        addition.n_hashes)
-                store.merge(addition)
+                self._ensure_dev_store().merge(addition)
                 self._host_stale = True
             else:
                 self.index = merge_into(self.index, addition)
@@ -897,8 +904,8 @@ class SIA:
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(n_samples)
         n_songs = self._n_songs()
+        spanned = self._is_spanned
         if early_exit:
-            spanned = bool(self.device_span_rows)
             if spanned or (n_songs * delta_range
                            > self.config.sparse_vote_threshold):
                 warnings.warn(
@@ -915,6 +922,11 @@ class SIA:
                     delta_range=delta_range, match_capacity=cap,
                     topn=topn or self.config.topn)
                 return raw, cap if clamped else max(int(raw.total_rows), cap)
+        if spanned:
+            return self._match_prepared_spanned(
+                index, q, n_songs=n_songs, delta_min=delta_min,
+                delta_range=delta_range, topn=topn,
+                min_capacity=min_capacity)
         q_dev = self._query_to_device({name: getattr(q, name)
                                        for name in QUERY_COLUMNS})
         caps = self._match_tiers()
@@ -976,6 +988,94 @@ class SIA:
                 raw = run(cap, blk=0)
         return raw, cap
 
+    def _match_prepared_spanned(self, dev, q, *, n_songs: int, delta_min: int,
+                                delta_range: int, topn: Optional[int],
+                                min_capacity: Optional[int] = None):
+        """``_match_prepared`` on a spanned store: every span searched, the
+        votes ranked together, always with a sparse rank, as in the JAX
+        package.
+
+        Per span each expansion clamps on its own at the tier, so the
+        retry signal is ``span_max``, the largest per-span count (the
+        total on the stacked layout's shared budget), exact even when
+        clamped. On a big store decided-first (stacked, blocked) runs once
+        at the decide tier and keeps its bounds, and bounds-first probes
+        the exact total over the spans and runs at the tier it fits; a
+        clamp is kept when provably decided, else the match runs again at
+        the tier ``span_max`` fits, and a blocked run-budget drop runs
+        again row by row. Returns (host RawMatch, capacity used): when no
+        span clamped, every row voted, and the capacity reported covers
+        the total."""
+        caps = self._match_tiers()
+        if min_capacity is not None:
+            caps = [c for c in caps if c >= min_capacity] or caps[-1:]
+        n_cand = self.config.rank_candidates
+        eblk = self._expand_block_for_spanned(dev)
+        q_dev = self._query_to_device({name: getattr(q, name)
+                                       for name in QUERY_COLUMNS})
+        kw = dict(n_songs=n_songs, delta_min=delta_min,
+                  delta_range=delta_range, topn=topn or self.config.topn)
+        bounds = None   # a stacked search's (n_spans, Q) (lb, ub)
+
+        def run(cap, blk=None, with_bounds=False):
+            vrank = self._rank_for(cap)
+            out = ()
+            if vrank == "pruned" and n_cand > 0 and not with_bounds:
+                raw, span_max, _ok = match_query_pruned_spanned(
+                    dev, *q_dev, match_capacity=cap, n_candidates=n_cand,
+                    **kw)
+            else:
+                raw, span_max, *out = match_query_sparse_spanned(
+                    dev, *q_dev, match_capacity=cap,
+                    vote_rank="sort" if vrank == "pruned" else vrank,
+                    expand_block=(self._eblk_for_cap(eblk, cap)
+                                  if blk is None else blk),
+                    expand_runs=self.config.expand_block_runs,
+                    bounds=bounds, with_bounds=with_bounds, **kw)
+            raw, (span_max,) = raw_to_host(raw, span_max)
+            return raw, span_max, tuple(out) or None
+
+        stacked = _is_stacked(dev)
+        rows = self.config.bounds_probe_min_rows
+        big = (min_capacity is None and rows
+               and self._spanned_rows(dev) >= rows)
+        if big and self._decide_first() and stacked and eblk:
+            cap = self._decide_cap(caps)
+            raw, span_max, bounds = run(cap, with_bounds=True)
+            clamped = span_max > cap or raw.n_dropped > 0
+            self._decide_record(1, int(clamped and not self._decided(raw)))
+        elif big:
+            if stacked:
+                total, lb, ub = query_total_spanned(
+                    dev, q_dev[0], q_dev[1], q_dev[2], q_dev[4],
+                    with_bounds=True)
+                bounds = (lb, ub)
+            else:
+                total = query_total_spanned(dev, q_dev[0], q_dev[1],
+                                            q_dev[2], q_dev[4])
+            total = int(total)
+            cap = next((c for c in caps if c >= total), caps[-1])
+            raw, span_max, _ = run(cap)
+        else:
+            cap = caps[0]
+            raw, span_max, _ = run(cap)
+        if span_max > cap or raw.n_dropped > 0:
+            if self._decided(raw):
+                return raw, max(raw.total_rows, cap)
+            if span_max > cap:
+                fit = next((c for c in caps if c >= span_max), caps[-1])
+                if fit != cap:      # not already at the last tier
+                    cap = fit
+                    raw, span_max, _ = run(cap)
+            if eblk and raw.n_dropped > 0 and span_max <= cap:
+                # the stacked blocked expansion's nonempty-run budget
+                # (expand_block_runs per span) overflowed: no tier cures
+                # that, the row-by-row expansion is the exact fallback
+                raw, span_max, _ = run(cap, blk=0)
+        if span_max <= cap and raw.n_dropped == 0:
+            return raw, max(raw.total_rows, cap)
+        return raw, cap
+
     def _query_to_device(self, cols: Dict[str, np.ndarray]):
         """Query columns (one query or a (B, Q) stack) on the device, in
         ``QUERY_COLUMNS`` order: keys and offsets as int64, masks bool."""
@@ -1025,6 +1125,23 @@ class SIA:
         blocks (they are padded to a multiple of 512), else 0."""
         blk = self.config.expand_block
         return blk if blk and self._index_rows(index) % blk == 0 else 0
+
+    def _expand_block_for_spanned(self, dev) -> int:
+        """config.expand_block on the stacked layout, whose flat rows split
+        into whole blocks when span_rows does; 0 per span (no blocked
+        variant there, as in the JAX package)."""
+        blk = self.config.expand_block
+        if not blk or not _is_stacked(dev):
+            return 0
+        return blk if dev.key64.shape[1] % blk == 0 else 0
+
+    @staticmethod
+    def _spanned_rows(dev) -> int:
+        """Real rows of a spanned store's views: ``_big_index``'s rule (the
+        JAX package reads the spans' capacity)."""
+        if _is_stacked(dev):
+            return dev.n_rows
+        return sum(view.n_rows for view in dev)
 
     def _decided(self, raw) -> bool:
         """True iff a capacity-clamped host RawMatch is provably the full
@@ -1099,6 +1216,10 @@ class SIA:
         # dedup-sort + search cost is linear in query lanes: a 5 s clip
         # yields ~1-2K unique pairs
         q_cap = 2048 if len(samples) <= 6 * self.config.sample_rate else 4096
+        if self._is_spanned:
+            return self._recognize_clip_spanned(
+                samples, index, n_songs=n_songs, delta_min=delta_min,
+                delta_range=delta_range, q_cap=q_cap, topn=topn, t0=t0)
         one_cap = self.config.match_capacity_fast
         if self._use_sparse(len(samples)) and self._big_index(index):
             if not self._decide_first():
@@ -1128,6 +1249,34 @@ class SIA:
                 or n_hashes > q_cap):
             return self.recognize_samples([samples], topn=topn)
         return self._clip_result(raw, n_pairs, max(raw.total_rows, one_cap),
+                                 device_time)
+
+    def _recognize_clip_spanned(self, samples: np.ndarray, dev, *,
+                                n_songs: int, delta_min: int,
+                                delta_range: int, q_cap: int,
+                                topn: Optional[int], t0: float) -> Dict:
+        """``recognize_clip`` on a spanned store: one pass at the fast tier
+        through every span (``recognize_on_device_spanned``), one
+        read-back. A peak or query-lane overflow, or a clamped span that
+        is not provably decided, goes to ``recognize_samples``."""
+        fast = self.config.match_capacity_fast
+        x, nv = self._to_device(samples)
+        raw, *counts = recognize_on_device_spanned(
+            x, nv, dev, **self._fp_kwargs(),
+            use_fused=_fused_ok(self.config), n_songs=n_songs,
+            delta_min=delta_min, delta_range=delta_range,
+            match_capacity=fast, topn=topn or self.config.topn,
+            query_capacity=q_cap,
+            rank_candidates=self.config.rank_candidates,
+            vote_rank=self._rank_for(fast))
+        raw, (span_max, n_pairs, n_peaks, n_hashes) = raw_to_host(raw, *counts)
+        device_time = time.time() - t0
+        if (n_peaks > self.config.peak_capacity
+                or ((span_max > fast or raw.n_dropped > 0)
+                    and not self._decided(raw))
+                or n_hashes > q_cap):
+            return self.recognize_samples([samples], topn=topn)
+        return self._clip_result(raw, n_pairs, max(raw.total_rows, fast),
                                  device_time)
 
     def _recognize_clip_probed(self, samples: np.ndarray,
@@ -1273,7 +1422,8 @@ class SIA:
                  for name in QUERY_COLUMNS}
 
         q_dev = probe_totals = probe_bounds = None
-        if not self._decide_first() and self.config.bounds_probe_min_rows:
+        if (not self._is_spanned and not self._decide_first()
+                and self.config.bounds_probe_min_rows):
             index = self._ensure_device_index()
             if (self._use_sparse(max(map(len, clips)))
                     and self._big_index(index)):
@@ -1325,7 +1475,11 @@ class SIA:
         total fits (``_match_prepared(min_capacity=...)``). The batch
         ranks with the dense histogram or, past
         ``sparse_vote_threshold``, the sort rank, which gives the
-        ``RawMatch`` of every sparse rank.
+        ``RawMatch`` of every sparse rank. A spanned SIA dispatches through
+        ``match_queries_batched_spanned`` (no escalation policy, as in the
+        JAX package), its clamp signal each clip's ``span_max``, and with
+        ``vote_rank="pruned"`` a clip whose certificate failed is matched
+        again alone (the whole batch again by the sort rank when most did).
         """
         clips, queries, peak_over = pb.clips, pb.queries, pb.peak_over
         n_real = len(clips)
@@ -1335,16 +1489,35 @@ class SIA:
         index = self._ensure_device_index()
         q_dev = pb.q_dev or self._query_to_device(pb.stack)
         probe_bounds = None
+        spanned = self._is_spanned
+        use_sparse = self._use_sparse(n_samples)
 
-        def dispatch(cap):
-            raw = batched_raw_to_host(self._batch_match(
-                q_dev, n_samples, cap, topn=topn, bounds=probe_bounds))
-            return raw, raw.total_rows[:n_real]
+        def dispatch(cap, pruned=True):
+            """(host RawMatch, per-clip certificates or None, per-clip
+            clamp signals)."""
+            if not spanned:
+                raw = batched_raw_to_host(self._batch_match(
+                    q_dev, n_samples, cap, topn=topn, bounds=probe_bounds))
+                return raw, None, raw.total_rows[:n_real]
+            delta_min, delta_range = self._delta_params_for(n_samples)
+            n_cand = (self.config.rank_candidates if pruned and use_sparse
+                      and self._rank_for(cap) == "pruned" else 0)
+            out = match_queries_batched_spanned(
+                index, *q_dev, n_songs=self._n_songs(), delta_min=delta_min,
+                delta_range=delta_range, match_capacity=cap,
+                topn=topn or self.config.topn, rank_candidates=n_cand,
+                vote_rank="pruned" if n_cand else "sort",
+                expand_block=self._eblk_for_cap(
+                    self._expand_block_for_spanned(index), cap),
+                expand_runs=self.config.expand_block_runs)
+            oks = out[2].cpu().numpy()[:n_real] if n_cand else None
+            return (batched_raw_to_host(out[0]), oks,
+                    out[1].cpu().numpy()[:n_real])
 
         tiers = self._match_tiers()
         base_cap = pb.match_capacity or self.config.match_capacity
         decide_first = self._decide_first()
-        big = self._use_sparse(n_samples) and self._big_index(index)
+        big = (not spanned and use_sparse and self._big_index(index))
         if big and decide_first:
             if pb.match_capacity is None:
                 base_cap = self._decide_cap(tiers)
@@ -1362,17 +1535,23 @@ class SIA:
                 base_cap = min(next((c for c in tiers if c >= need),
                                     tiers[-1]), allowed[-1])
 
-        raw, clamp = dispatch(base_cap)
+        raw, oks, clamp = dispatch(base_cap)
         batch_cap = base_cap
         decided_ids: set = set()
         retried: Dict[int, Tuple] = {}
+        if oks is not None and (~oks).sum() > max(n_real // 2, 1):
+            # most certificates failed: the whole batch by the sort rank
+            raw, oks, clamp = dispatch(batch_cap, pruned=False)
 
         def undecided(clamped):
-            """The clamped clips whose margin does not decide them."""
+            """The clamped clips whose margin does not decide them (a clip
+            whose pruned certificate failed is never decided)."""
             if not self.config.decision_escalation:
                 return clamped
             margin_ok = (raw.top_votes[:n_real, 0] - raw.runner_votes[:n_real]
                          > raw.n_dropped[:n_real])
+            if oks is not None:
+                margin_ok &= oks
             decided_ids.update(int(i) for i in clamped if margin_ok[i])
             return clamped[~margin_ok[clamped]]
 
@@ -1388,7 +1567,7 @@ class SIA:
                 if n_real * ((1 << m_bits) * 4 + 24 * cand_cap) \
                         <= BATCH_GUARD_BYTES:
                     batch_cap = cand_cap
-                    raw, clamp = dispatch(batch_cap)
+                    raw, oks, clamp = dispatch(batch_cap)
                     decided_ids.clear()   # judged against the old dispatch
                     over = undecided(np.nonzero(
                         (clamp > batch_cap) | (raw.n_dropped[:n_real] > 0))[0])
@@ -1396,6 +1575,14 @@ class SIA:
                 retried[int(i)] = self._match_prepared(
                     queries[i], len(clips[i]), topn=topn,
                     min_capacity=int(clamp[i]))
+        if oks is not None:
+            # a failed certificate leaves a row that is not exact: alone,
+            # the pruned rank falls back to the sort rank on the device
+            for i in np.nonzero(~oks)[0]:
+                if int(i) not in retried and int(i) not in peak_over:
+                    retried[int(i)] = self._match_prepared(
+                        queries[i], len(clips[i]), topn=topn,
+                        min_capacity=max(int(clamp[i]), 1))
         query_time = time.time() - t0
 
         out = []
@@ -1408,10 +1595,11 @@ class SIA:
                 one, cap_i = retried[i]
             else:
                 one = RawMatch(*(a[i] for a in raw))
-                # a clip that fit, or is provably decided, reads as
+                # a clip that fit (its clamp signal: the total, or spanned
+                # its largest span), or is provably decided, reads as
                 # unaffected by the capacity
                 cap_i = (max(int(one.total_rows), batch_cap)
-                         if int(one.total_rows) <= batch_cap
+                         if int(clamp[i]) <= batch_cap
                          or i in decided_ids else batch_cap)
             res = self._clip_result(one, queries[i].n_pairs, cap_i, 0.0)
             align_time = time.time() - t0
@@ -1454,19 +1642,23 @@ class SIA:
         return removed
 
     def consolidate_index(self) -> None:
-        """The JAX package stacks a spanned store into its serving layout
-        here and closes it to ingest. The port's store is one flat sorted
-        run, already searched in one round, so there is nothing to stack
-        and the store stays open to ingest."""
+        """Stack a spanned store into its serving layout
+        (``SpannedDeviceStore.consolidate``): one batched search over the
+        spans instead of a loop over them. The store is then closed to
+        ingest. Nothing to do on any other SIA."""
+        if self._is_spanned:
+            with self._upload_lock:
+                self._ensure_dev_store().consolidate()
 
     def save_index(self, path: str) -> None:
-        """Persist the index. A spanned SIA's live store writes the span-
-        wise format of the JAX package (``index/devmerge.save_spanned``);
-        everything else writes the flat sorted ``.npz`` both packages read
-        (a device store is synced to the host first)."""
-        if self.device_span_rows and self._dev_store is not None:
+        """Persist the index. A spanned SIA's live store writes the JAX
+        package's span-wise file (``SpannedDeviceStore.save``: each span's
+        rows, no global sort); everything else writes the flat sorted
+        ``.npz`` both packages read (a device store is synced to the host
+        first)."""
+        if isinstance(self._dev_store, SpannedDeviceStore):
             with self._upload_lock:
-                save_spanned(self._dev_store, path, self.device_span_rows)
+                self._dev_store.save(path)
             return
         self.index.save(path)
 
@@ -1474,20 +1666,19 @@ class SIA:
         """Load a flat ``.npz`` index or a span-wise one, then restore the
         catalog invariant (fingerprinted flag <=> hash rows present).
 
-        A spanned SIA uploads a span-wise file straight into its store
-        (``index/devmerge.load_spanned``: no host sort) and reconciles the
-        catalog only when its hash total differs from the store's rows,
-        as the JAX package does; any other SIA flattens the file on the
-        host. ``stacked=True``, the JAX package's stacked serving layout,
-        loads the same store here. A flat file into a device-resident SIA
-        is uploaded on the next query."""
+        A spanned SIA uploads a span-wise file straight into a store of
+        its ``device_span_rows`` (``SpannedDeviceStore.load``: no sort on
+        either side; ``stacked=True`` builds the consolidated layout
+        directly, closed to ingest) and reconciles the catalog only when
+        its hash total differs from the store's rows, as the JAX package
+        does; any other SIA flattens the file on the host. A flat file
+        into a device-resident SIA is uploaded on the next query."""
         if is_spanned_file(path):
-            if self.device_span_rows:
+            if self._is_spanned:
                 with self._upload_lock:
-                    # the span minimum; a span-wise file's payload packs
-                    check_spanned(self.device_span_rows, 0, 0, 0)
-                    store = load_spanned(path, self.device,
-                                         reserve=self.device_reserve_hashes)
+                    store = SpannedDeviceStore.load(
+                        path, span_rows=self.device_span_rows,
+                        stacked=stacked, device=self.device)
                     self.index = build_index([], n_songs=0)
                     self._dev_store = store
                     self._host_stale = True

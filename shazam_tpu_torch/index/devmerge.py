@@ -39,21 +39,24 @@ positions, so every merge, append or finalize invalidates it;
 ``query_cols()`` rebuilds it on the device (first-of-run flags, a
 prefix sum, a scatter and a gather) and caches it until the next change.
 
-Spans. The JAX package's ``SpannedDeviceStore`` holds the index as many
-bounded sorted spans, because its TPU worker killed long device programs
-and its HBM was 16 GB. On an 80 GB card one flat store holds the
-reference's largest deployment (436,682,654 rows), so the port keeps the
-spans' API and file format over this flat store: ``save_spanned`` writes
-the sorted rows in the span-wise format, ``load_spanned`` uploads such a
-file straight into a store (the device sorts it only when its spans
-overlap, as the JAX package's do), ``load_spanned_flat`` flattens one on
-the host, and ``check_spanned`` refuses what ``SpannedDeviceStore``
-refuses.
+Spans. ``SpannedDeviceStore`` is the JAX package's spanned store: the
+index as a list of ``DeviceIndex`` spans of exactly ``span_rows`` rows
+each. Ingest goes into the last (active) span; a run that does not fit
+seals it (its pending appends sorted) and opens a fresh one, so a merge
+allocates and moves O(span_rows) whatever the catalog's size, where the
+flat store rebuilds every row into new columns. A sealed span never
+changes, so its search view is built once and cached; only the active
+span's is rebuilt after an ingest. Queries search every span
+(``match/lookup.match_query_sparse_spanned``). ``consolidate`` stacks the
+spans into (n_spans, span_rows) columns, searched in one batched round and
+closed to ingest; ``save`` / ``load`` / ``load_flat`` read and write the
+JAX package's span-wise ``.npz`` file.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import sys
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,14 +67,13 @@ from .store import FingerprintIndex, atomic_savez, offset_stride_for
 SENTINEL = np.iinfo(np.int64).max
 MIN_CAPACITY = 1 << 16
 _SIGN = np.uint64(1 << 63)
-_SPAN_COLUMNS = ("hi", "lo", "ex", "pp")
 
 Cols = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # key64, ex, payload
 
 
-def capacity_for(n: int) -> int:
-    """Power-of-two row capacity for ``n`` rows, at least 2^16."""
-    c = MIN_CAPACITY
+def capacity_for(n: int, floor: int = MIN_CAPACITY) -> int:
+    """Power-of-two row capacity for ``n`` rows, at least ``floor``."""
+    c = floor
     while c < n:
         c <<= 1
     return c
@@ -86,22 +88,6 @@ def packed_stride_for(max_offset: int, n_songs: int) -> int:
     same, so that both packages accept the same ones."""
     stride = offset_stride_for(max_offset)
     return stride if max(n_songs, 1) * stride <= (1 << 32) else 0
-
-
-def check_spanned(span_rows: int, n_songs: int, max_offset: int,
-                  n_rows: int) -> None:
-    """Refuse what the JAX package's ``SpannedDeviceStore`` refuses, with
-    its errors: spans under ``MIN_CAPACITY // 16`` rows, and a non-empty
-    catalog whose (song, offset) payload does not pack into the uint32
-    ``pp`` column of the span-wise file."""
-    if span_rows < MIN_CAPACITY // 16:
-        raise ValueError(f"span_rows {span_rows} is below the minimum "
-                         f"{MIN_CAPACITY // 16}")
-    if n_rows and not packed_stride_for(max_offset, n_songs):
-        raise ValueError(
-            f"catalog ({n_songs} songs x offset {max_offset}) exceeds the "
-            "packed uint32 payload; a spanned store requires the packed "
-            "payload layout")
 
 
 def rows_sorted(key64: torch.Tensor, ex: torch.Tensor,
@@ -323,8 +309,9 @@ class DeviceIndex:
         self._changed(self.n_valid + n_add, n_songs, max_offset)
 
     def _merge(self, add: Cols, n_add: int) -> None:
-        """Rank-merge a sorted run into the (finalized) rows."""
-        cap = capacity_for(max(self.capacity, self.n_valid + n_add))
+        """Rank-merge a sorted run into the (finalized) rows, doubling the
+        capacity only when they do not fit (a span always fits)."""
+        cap = capacity_for(self.n_valid + n_add, self.capacity)
         self.cols = merge_runs(self.cols, self.n_valid, add, n_add, cap)
         self._sorted_rows = self.n_valid + n_add
 
@@ -388,54 +375,436 @@ class DeviceIndex:
             n_songs=self.n_songs, max_offset=self.max_offset)
 
 
-# ---- the JAX package's span-wise file format ------------------------------
-def save_spanned(dstore: DeviceIndex, path: str, span_rows: int) -> None:
-    """Write a store in the span-wise format of the JAX package's
-    ``SpannedDeviceStore.save``: an uncompressed npz of ``spanned_meta =
-    [span_rows, stride, n_songs, max_offset]`` (int64) and
-    ``s{i:05d}_hi|lo|ex|pp`` uint32 columns (``pp = song * stride +
-    offset``), the sorted rows cut into chunks of ``span_rows`` rows, the
-    last one partial. Every chunk is sorted, which is all the format asks
-    of a span; here their concatenation is sorted too."""
-    hi, lo, ex, payload = dstore._host_rows()
-    check_spanned(span_rows, dstore.n_songs, dstore.max_offset, len(hi))
-    pp = payload.astype(np.uint32)   # packable, checked above
-    arrays = {"spanned_meta": np.array(
-        [span_rows, dstore.stride, dstore.n_songs, dstore.max_offset],
-        np.int64)}
-    for i, start in enumerate(range(0, len(hi), span_rows)):
-        for name, col in zip(_SPAN_COLUMNS, (hi, lo, ex, pp)):
-            arrays[f"s{i:05d}_{name}"] = col[start: start + span_rows]
-    atomic_savez(path, compress=False, **arrays)
+# ---- spans ----------------------------------------------------------------
+def _run_pow2(n: int) -> int:
+    """Smallest power of two >= ``n``, at least 1,024: the length a run is
+    trimmed to before it goes into a span, as in the JAX package."""
+    return capacity_for(n, 1024)
 
 
-def load_spanned(path: str, device, reserve: int = 0) -> DeviceIndex:
-    """A span-wise file straight into a device store, with no host sort:
-    the spans' rows are uploaded one behind the other (payloads repacked
-    when the store's stride differs from the saved one), and only when
-    their concatenation is not sorted, as where the JAX package's spans
-    overlap in key range, does the device sort it (``finalize``)."""
-    spans = []
-    with np.load(path) as z:
-        stride, n_songs, max_off = (int(x) for x in z["spanned_meta"][1:])
-        while f"s{len(spans):05d}_hi" in z:
-            spans.append([np.asarray(z[f"s{len(spans):05d}_{n}"])
-                          for n in _SPAN_COLUMNS])
-    n = sum(len(cols[0]) for cols in spans)
-    out = empty_cols(capacity_for(max(n, reserve, 1)), device)
-    start = 0
-    for hi, lo, ex, pp in spans:
-        k = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-        for o, h in zip(out, ((k ^ _SIGN).view(np.int64), ex.astype(np.int64),
-                              pp.astype(np.int64))):
-            o[start: start + len(h)] = torch.from_numpy(h).to(device)
-        start += len(hi)
-    loaded = DeviceIndex(out, n, n_songs, max_off, max(stride, 1))
-    loaded._ensure_layout(max_off)
-    if not bool(rows_sorted(*(c[:n] for c in out))):
-        loaded._sorted_rows = 0
-        loaded.finalize()
-    return loaded
+def _stack_row(big: torch.Tensor, col: torch.Tensor, i: int) -> torch.Tensor:
+    """Copy one span's column into row ``i`` of a stacked column."""
+    big[i].copy_(col)
+    return big
+
+
+def _span_host_cols(hi, lo, ex, pp) -> Tuple[np.ndarray, ...]:
+    """A span-wise file's uint32 (hi, lo, ex, pp) rows as the store's
+    (key64, ex, payload) int64 columns (the payload keeps the saved
+    stride)."""
+    k = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return ((k ^ _SIGN).view(np.int64), ex.astype(np.int64),
+            pp.astype(np.int64))
+
+
+class SpannedDeviceStore:
+    """The index as bounded sorted spans on a device: the JAX package's
+    ``SpannedDeviceStore``, over a list of this module's ``DeviceIndex``
+    spans, each of exactly ``span_rows`` rows.
+
+    A flat ``DeviceIndex`` rebuilds every row into new columns on each
+    merge and doubles its capacity as it grows, so its transients and its
+    merge time grow with the catalog. Here ingest goes into the active
+    (last) span; a run that does not fit seals it and opens a fresh one.
+    No merge touches more than one span, so its time and memory are
+    O(span_rows) whatever the catalog's size. Queries search every span
+    and count the votes together (``match/lookup``'s spanned matchers).
+
+    It has the flat store's ingest surface (``stride``, ``n_valid``,
+    ``n_songs``, ``max_offset``, ``_ensure_layout``, ``append_run``,
+    ``merge_device_run``, ``merge``, ``finalize``, ``query_cols``,
+    ``to_host``). The catalog's (song, offset) payload must pack into the
+    uint32 ``pp`` column of the span-wise file. Not safe across threads by
+    itself: ``SIA`` calls it under its ``_upload_lock``."""
+
+    is_spanned = True
+    _COL_NAMES = ("hi", "lo", "ex", "pp")
+
+    def __init__(self, span_rows: int, n_songs: int = 0, max_offset: int = 0,
+                 stride: int = 1, device="cpu"):
+        if span_rows < MIN_CAPACITY // 16:
+            raise ValueError(f"span_rows {span_rows} is below the minimum "
+                             f"{MIN_CAPACITY // 16}")
+        if stride == 0:
+            raise ValueError("SpannedDeviceStore requires the packed "
+                             "4-column layout (stride > 0)")
+        self.span_rows = int(span_rows)
+        self.n_songs = int(n_songs)
+        self.max_offset = int(max_offset)
+        self.stride = int(stride)
+        self._device = torch.device(device)
+        self.spans: List[DeviceIndex] = [self._new_span()]
+        # consolidate(): (key64, ex, payload, key_sub), each (n_spans,
+        # span_rows), and the stacked search view over them
+        self._stacked: Optional[Tuple[torch.Tensor, ...]] = None
+        self._stacked_valids: List[int] = []
+        self._stacked_view: Optional[store.DeviceIndex] = None
+        self.host_staged = 0   # consolidations finished through the host
+
+    # ---- construction -------------------------------------------------
+    @classmethod
+    def from_host(cls, ix: FingerprintIndex, span_rows: int, reserve: int = 0,
+                  device="cpu") -> "SpannedDeviceStore":
+        """Upload a host index cut into contiguous sorted spans.
+        ``reserve`` is taken for ``DeviceIndex.from_host``'s signature and
+        unused: a span's capacity is fixed."""
+        if ix.n_hashes and not packed_stride_for(ix.max_offset, ix.n_songs):
+            raise ValueError(
+                "SpannedDeviceStore requires the packed payload layout; "
+                "use DeviceIndex / the by-song sharded regime instead")
+        stride = ix.offset_stride
+        out = cls(span_rows, ix.n_songs, ix.max_offset, stride, device)
+        cols = host_cols(ix, stride)
+        for start in range(0, ix.n_hashes, span_rows):
+            part = tuple(c[start: start + span_rows] for c in cols)
+            span = DeviceIndex(_upload(part, span_rows, out.device),
+                               len(part[0]), ix.n_songs, ix.max_offset, stride)
+            if out.spans[-1].n_valid == 0:
+                out.spans[-1] = span
+            else:
+                out.spans.append(span)
+        return out
+
+    # ---- shared-surface properties ------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def n_valid(self) -> int:
+        return sum(self._stacked_valids) + sum(s.n_valid for s in self.spans)
+
+    @property
+    def capacity(self) -> int:
+        """Rows the spans hold, real and sentinel."""
+        n_spans = len(self._stacked_valids) + len(self.spans)
+        return n_spans * self.span_rows
+
+    @property
+    def is_stacked(self) -> bool:
+        return self._stacked is not None
+
+    @property
+    def active(self) -> DeviceIndex:
+        return self.spans[-1]
+
+    @property
+    def _unsorted(self) -> bool:
+        """A span holds deferred-sort appends (``finalize`` sorts them)."""
+        return any(s._unsorted for s in self.spans)
+
+    def _new_span(self) -> DeviceIndex:
+        return DeviceIndex(empty_cols(self.span_rows, self.device), 0,
+                           self.n_songs, self.max_offset, self.stride)
+
+    def _seal_active(self) -> None:
+        """Sort the active span into its final order and open a fresh one."""
+        self.active.finalize()
+        self.spans.append(self._new_span())
+
+    def _ensure_layout(self, max_offset: int, n_songs: int = 0) -> None:
+        """Repack every span when catalog growth changes the stride:
+        queries assume one stride across the spans."""
+        n_songs = max(self.n_songs, int(n_songs))
+        max_offset = max(self.max_offset, int(max_offset))
+        new_stride = packed_stride_for(max_offset, n_songs)
+        if new_stride == 0:
+            raise ValueError(
+                f"catalog ({n_songs} songs x offset {max_offset}) exceeds "
+                "the packed uint32 payload; spanned device residency "
+                "cannot hold it — use the by-song sharded regime")
+        if self.is_stacked and new_stride != self.stride:
+            raise ValueError(
+                "store is consolidated; a layout change (stride "
+                f"{self.stride} -> {new_stride}) cannot be applied to "
+                "the stacked arrays")
+        for s in self.spans:
+            s.n_songs = max(s.n_songs, n_songs)
+            s.max_offset = max(s.max_offset, max_offset)
+            s._ensure_layout(max_offset)
+        self.stride = new_stride
+        self.n_songs = n_songs
+        self.max_offset = max_offset
+
+    # ---- ingest --------------------------------------------------------
+    def _fit_or_roll(self, need_rows: int) -> DeviceIndex:
+        """The span a run of ``need_rows`` rows goes into: the active one,
+        or a fresh one when it does not fit there."""
+        if self.is_stacked:
+            raise ValueError(
+                "store is consolidated (stacked serving layout); "
+                "re-opening for ingest is not supported — keep the "
+                "per-span layout while the catalog is still growing")
+        if need_rows > self.span_rows:
+            raise ValueError(
+                f"one addition run ({need_rows} rows incl. padding) "
+                f"exceeds span_rows {self.span_rows}; raise span_rows or "
+                "split the batch")
+        if self.active.n_valid + need_rows > self.span_rows:
+            self._seal_active()
+        return self.active
+
+    def _absorbed(self, span: DeviceIndex) -> None:
+        self.n_songs = max(self.n_songs, span.n_songs)
+        self.max_offset = max(self.max_offset, span.max_offset)
+
+    def append_run(self, add_cols: Cols, n_add: int, n_songs: int,
+                   max_offset: int) -> None:
+        """Deferred-sort ingest into the active span (``DeviceIndex.
+        append_run``). The run is trimmed to a power of two (at least
+        1,024 rows) and takes that much room, as the JAX package's padded
+        copy does, so both packages roll their spans at the same runs."""
+        if n_add == 0:
+            return
+        self._ensure_layout(max_offset, n_songs)
+        run_len = min(_run_pow2(n_add), add_cols[0].shape[0])
+        span = self._fit_or_roll(run_len)
+        span.append_run(add_cols, n_add, self.n_songs, self.max_offset)
+        self._absorbed(span)
+
+    def merge_device_run(self, add_cols: Cols, n_add: int, n_songs: int,
+                         max_offset: int) -> None:
+        """Rank-merge a sorted device run into the active span: only its
+        ``n_add`` real rows take room."""
+        if n_add == 0:
+            return
+        self._ensure_layout(max_offset, n_songs)
+        span = self._fit_or_roll(n_add)
+        span.merge_device_run(add_cols, n_add, self.n_songs, self.max_offset)
+        self._absorbed(span)
+
+    def merge(self, addition: FingerprintIndex) -> None:
+        """Absorb a sorted host addition, in pieces of ``span_rows // 2``
+        rows."""
+        if addition.n_hashes == 0:
+            return
+        self._ensure_layout(addition.max_offset, addition.n_songs)
+        chunk = self.span_rows // 2
+        for start in range(0, addition.n_hashes, chunk):
+            sl = slice(start, start + chunk)
+            piece = FingerprintIndex(
+                addition.key_hi[sl], addition.key_lo[sl],
+                addition.key_ex[sl], addition.song_id[sl],
+                addition.offset[sl], n_songs=self.n_songs,
+                max_offset=self.max_offset)
+            span = self._fit_or_roll(piece.n_hashes)
+            span.merge(piece)
+            self._absorbed(span)
+
+    def finalize(self) -> None:
+        for s in self.spans:
+            s.finalize()
+
+    # ---- consumption ---------------------------------------------------
+    def query_cols(self):
+        """The matchers' search views: a tuple of per-span
+        ``index/store.DeviceIndex`` views (each sealed span's built once
+        and cached; an empty store still gives one), or, consolidated, one
+        view whose columns are (n_spans, span_rows) with span-local
+        ``key_sub`` positions."""
+        if self.is_stacked:
+            return self._stacked_view
+        self.finalize()
+        live = [s for s in self.spans if s.n_valid > 0] or self.spans[-1:]
+        return tuple(s.query_cols() for s in live)
+
+    def _live_spans(self) -> List[DeviceIndex]:
+        """Each non-empty span as a ``DeviceIndex``, per span or stacked
+        (a stacked row's columns are views of the stacked ones)."""
+        self.finalize()
+        if self.is_stacked:
+            return [DeviceIndex(tuple(c[i] for c in self._stacked[:3]), nv,
+                                self.n_songs, self.max_offset, self.stride)
+                    for i, nv in enumerate(self._stacked_valids) if nv > 0]
+        return [s for s in self.spans if s.n_valid > 0]
+
+    def to_host(self) -> FingerprintIndex:
+        """One globally sorted host index: each span's rows, concatenated
+        and lexsorted on the host (equal rows are interchangeable, so this
+        is the flat store's index row for row)."""
+        parts = [s.to_host() for s in self._live_spans()]
+        if not parts:
+            return FingerprintIndex(
+                *(np.zeros(0, np.uint32) for _ in range(5)),
+                n_songs=self.n_songs, max_offset=self.max_offset)
+        cat = [np.concatenate([getattr(p, f) for p in parts])
+               for f in ("key_hi", "key_lo", "key_ex", "song_id", "offset")]
+        order = np.lexsort((cat[4], cat[3], cat[2], cat[1], cat[0]))
+        return FingerprintIndex(*(a[order] for a in cat),
+                                n_songs=self.n_songs,
+                                max_offset=self.max_offset)
+
+    # ---- the span-wise file ------------------------------------------
+    def save(self, path: str) -> None:
+        """Write the JAX package's span-wise file: an uncompressed npz of
+        ``spanned_meta = [span_rows, stride, n_songs, max_offset]`` (int64)
+        and, per non-empty span, its valid rows as ``s{i:05d}_hi|lo|ex|pp``
+        uint32 columns (``pp = song * stride + offset``). No global sort:
+        each span is sorted, which is all the format asks."""
+        arrays = {"spanned_meta": np.array(
+            [self.span_rows, self.stride, self.n_songs, self.max_offset],
+            np.int64)}
+        for i, span in enumerate(self._live_spans()):
+            hi, lo, ex, payload = span._host_rows()
+            for name, col in zip(self._COL_NAMES,
+                                 (hi, lo, ex, payload.astype(np.uint32))):
+                arrays[f"s{i:05d}_{name}"] = col
+        atomic_savez(path, compress=False, **arrays)
+
+    @classmethod
+    def load(cls, path: str, span_rows: int = 0, stacked: bool = False,
+             device="cpu") -> "SpannedDeviceStore":
+        """A store from a span-wise file, upload only: each saved span is
+        cut into spans of ``span_rows`` rows (default: as saved; a cut of
+        a sorted span is sorted), and nothing is sorted on either side.
+        ``stacked=True`` builds ``consolidate``'s layout straight from the
+        file, so the per-span columns never exist on the device; like any
+        consolidated store it is closed to ingest."""
+        with np.load(path) as z:
+            saved_rows, stride, n_songs, max_off = (
+                int(x) for x in z["spanned_meta"])
+            span_rows = span_rows or saved_rows
+            out = cls(span_rows, n_songs, max_off, max(stride, 1), device)
+            pieces = []   # one per device span: its host rows
+            i = 0
+            while f"s{i:05d}_hi" in z:
+                cols = _span_host_cols(*(np.asarray(z[f"s{i:05d}_{n}"])
+                                         for n in cls._COL_NAMES))
+                for start in range(0, len(cols[0]), span_rows):
+                    pieces.append(tuple(c[start: start + span_rows]
+                                        for c in cols))
+                i += 1
+        dev = out.device
+        if stacked and pieces:
+            n = len(pieces)
+            big = tuple(torch.full((n, span_rows), fill, dtype=torch.int64,
+                                   device=dev)
+                        for fill in (SENTINEL, SENTINEL, 0))
+            for r, piece in enumerate(pieces):
+                for b, h in zip(big, piece):
+                    b[r, : len(h)] = torch.from_numpy(h).to(dev)
+            valids = [len(p[0]) for p in pieces]
+            key_sub = torch.empty((n, span_rows), dtype=torch.int64,
+                                  device=dev)
+            for r, nv in enumerate(valids):
+                key_sub[r] = search_view_key_sub(big[0][r], big[1][r], nv,
+                                                 span_rows)
+            out._set_stacked((*big, key_sub), valids)
+            return out
+        out.spans = [DeviceIndex(_upload(p, span_rows, dev), len(p[0]),
+                                 n_songs, max_off, out.stride)
+                     for p in pieces] or [out._new_span()]
+        return out
+
+    @staticmethod
+    def load_flat(path: str) -> FingerprintIndex:
+        """A span-wise file as one sorted host index, without the device."""
+        return load_spanned_flat(path)
+
+    # ---- the stacked serving layout --------------------------------------
+    def _set_stacked(self, cols: Tuple[torch.Tensor, ...],
+                     valids: List[int]) -> None:
+        key64, _ex, payload, key_sub = cols
+        self._stacked = tuple(cols)
+        self._stacked_valids = list(valids)
+        self._stacked_view = store.DeviceIndex(key64, key_sub, payload,
+                                               sum(valids), self.stride)
+        self.spans = []
+
+    def consolidate(self) -> None:
+        """Stack the spans into (n_spans, span_rows) serving columns:
+        key64, ex, payload and the spans' search views' ``key_sub``.
+
+        Column by column: the stacked column is allocated first, the
+        spans' rows are copied in, and after a sync the spans' sources of
+        that column are released, so the device holds the catalog and
+        one stacked column at most. When the device runs out of memory
+        (``torch.cuda.OutOfMemoryError``), the remaining columns are
+        staged through host memory (each span's column downloaded and
+        released, then the stacked one uploaded), which is counted in
+        ``host_staged`` and printed. Any other fault rolls back to the
+        per-span layout whole. Closed to ingest afterwards."""
+        if self.is_stacked:
+            return
+        self.finalize()
+        live = [s for s in self.spans if s.n_valid > 0] or self.spans[-1:]
+        # every column's sources, the search views' key_sub included;
+        # only this list holds them from here on, so a column is freed
+        # once its entries are dropped
+        srcs = [[*s.cols, s.query_cols().key_sub] for s in live]
+        for s in live:
+            s.cols, s._view = None, None
+        stacked: List[torch.Tensor] = []
+        oom = False
+        try:
+            self._consolidate_columns(srcs, stacked)
+        except torch.cuda.OutOfMemoryError:
+            oom = True
+        except BaseException:
+            self._restore_spans(live, srcs, stacked)
+            raise
+        if oom:
+            # outside the except block: its traceback would keep the
+            # failed stacked column alive through the host pass
+            print(f"SpannedDeviceStore.consolidate: device memory ran out "
+                  f"after {len(stacked)} of {len(srcs[0])} stacked columns; "
+                  "staging the rest through host memory", file=sys.stderr,
+                  flush=True)
+            try:
+                self._consolidate_via_host(srcs, stacked)
+            except BaseException:
+                self._restore_spans(live, srcs, stacked)
+                raise
+            self.host_staged += 1
+        self._set_stacked(tuple(stacked), [s.n_valid for s in live])
+
+    def _consolidate_columns(self, srcs, stacked) -> None:
+        n = len(srcs)
+        for c in range(len(srcs[0])):
+            big = torch.empty((n, self.span_rows), dtype=torch.int64,
+                              device=self.device)
+            for i, row in enumerate(srcs):
+                big = _stack_row(big, row[c], i)
+            # a fault surfaces at the sync: release the sources only after
+            if big.is_cuda:
+                torch.cuda.synchronize(big.device)
+            stacked.append(big)
+            for row in srcs:
+                row[c] = None
+
+    def _consolidate_via_host(self, srcs, stacked) -> None:
+        """The columns not stacked yet, staged through host memory: each
+        span's column downloaded and released, then the stacked column
+        uploaded. The device never holds more than the catalog."""
+        for c in range(len(stacked), len(srcs[0])):
+            rows = []
+            try:
+                for row in srcs:
+                    rows.append(row[c].cpu())
+                    row[c] = None
+                stacked.append(torch.stack(rows).to(self.device))
+            except BaseException:
+                for row, h in zip(srcs, rows):
+                    if row[c] is None:
+                        row[c] = h.to(self.device)
+                raise
+
+    def _restore_spans(self, live, srcs, stacked) -> None:
+        """Put the per-span layout back after a fault: a released source
+        comes back from its stacked copy (row i of stacked column c is
+        span i's column c), each stacked column downloaded whole and
+        freed before its rows go up again, so that the restore needs no
+        more device memory than the catalog."""
+        for c in range(len(stacked)):
+            if any(row[c] is None for row in srcs):
+                host = stacked[c].cpu()
+                stacked[c] = None
+                for i, row in enumerate(srcs):
+                    if row[c] is None:
+                        row[c] = host[i].to(self.device)
+        for s, row in zip(live, srcs):
+            s.cols = tuple(row[:3])
+            s._view = None
 
 
 def is_spanned_file(path: str) -> bool:
@@ -455,10 +824,10 @@ def load_spanned_flat(path: str) -> FingerprintIndex:
     lexsorted."""
     with np.load(path) as z:
         stride, n_songs, max_off = (int(x) for x in z["spanned_meta"][1:])
-        parts = {n: [] for n in _SPAN_COLUMNS}
+        parts = {n: [] for n in SpannedDeviceStore._COL_NAMES}
         i = 0
         while f"s{i:05d}_hi" in z:
-            for n in _SPAN_COLUMNS:
+            for n in parts:
                 parts[n].append(np.asarray(z[f"s{i:05d}_{n}"]))
             i += 1
     cat = {n: (np.concatenate(p) if p else np.zeros(0, np.uint32))

@@ -12,7 +12,10 @@ columns (``index/store.py``):
    whose ex equals the query's, with the query key ``lb64 << 16 | ex``.
 
 Both bounds are exact for any key distribution (hyper-common hashes
-included), with no host sync and no bucket head to build.
+included), with no host sync and no bucket head to build. On a
+consolidated spanned store's view, whose columns are (n_spans,
+span_rows), the same two searches run batched over the spans, each query
+broadcast to every span, and the bounds are span-local rows.
 """
 
 from __future__ import annotations
@@ -33,12 +36,16 @@ def lexi_bounds(index: DeviceIndex, q_hi: torch.Tensor, q_lo: torch.Tensor,
     """(lower, upper) row bounds of each query key, int64.
 
     Rows [lower, upper) hold exactly the query's 80-bit key. With
-    ``q_valid``, padding lanes get zero-width (0, 0) spans.
+    ``q_valid``, padding lanes get zero-width (0, 0) spans. On a stacked
+    (n_spans, span_rows) view, (Q,) queries give (n_spans, Q) bounds.
     """
     q64 = query_key64(q_hi, q_lo)
+    q_ex = q_ex.to(torch.int64)
+    if index.key64.dim() == 2:
+        q64 = q64.expand(index.key64.shape[0], -1).contiguous()
     lb64 = torch.searchsorted(index.key64, q64, side="left")
     ub64 = torch.searchsorted(index.key64, q64, side="right")
-    q_sub = lb64 * (1 << 16) + q_ex.to(torch.int64)
+    q_sub = lb64 * (1 << 16) + q_ex
     lb = torch.searchsorted(index.key_sub, q_sub, side="left")
     ub = torch.searchsorted(index.key_sub, q_sub, side="right")
     # no row with this 64-bit prefix: lb64 starts another key's run and

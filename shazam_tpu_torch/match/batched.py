@@ -1,8 +1,8 @@
 """Batched multi-query matching: many clips against the index in one dispatch.
 
 The port of ``shazam_tpu/match/batched.py`` (``query_totals_batched``,
-``match_queries_batched``; the spanned variant waits for the spanned
-store). The JAX package vmaps the single-query matcher over a (Bq, Q)
+``match_queries_batched``, ``match_queries_batched_spanned``). The JAX
+package vmaps the single-query matcher over a (Bq, Q)
 query stack. The port's matcher has no fixed-shape form to vmap, so the
 clip index travels in the data instead (``lookup.expand_stack``,
 ``lookup.dense_rank``, ``lookup.sort_rank``), and one dispatch launches
@@ -21,7 +21,10 @@ the same kernels whatever the batch size:
 Every clip's row equals ``lookup.match_by_rank`` on that clip alone at the
 same capacity and expansion, which runs the same code on a stack of one.
 The batch ranks with ``"dense"`` or ``"sort"``; the scan and pruned ranks
-give the same ``RawMatch`` and have no batched form.
+give the same ``RawMatch`` and have no batched form. Against a spanned
+store, ``match_queries_batched_spanned`` expands every span's runs of the
+stack at once (``lookup.expand_spans_stack``) and ranks them with the sort
+rank, or clip by clip with the pruned rank and its certificate.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import torch
 
 from ..index.search import lexi_bounds
 from ..index.store import DeviceIndex
-from .lookup import (RawMatch, check_vote_key, dense_rank, expand_stack,
-                     sort_rank)
+from .lookup import (RawMatch, _pruned_vote_rank, _is_stacked, check_vote_key,
+                     dense_rank, expand_spans_stack, expand_stack, sort_rank)
 
 
 def _batched_bounds(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid):
@@ -80,6 +83,49 @@ def match_queries_batched(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
     if rank == "dense":
         return dense_rank(*args, **kw)
     return sort_rank(*args, prefix=match_capacity if blk else 0, **kw)
+
+
+def match_queries_batched_spanned(span_arrays, q_hi, q_lo, q_ex, q_t,
+                                  q_valid, q_first, *, n_songs: int,
+                                  delta_min: int, delta_range: int,
+                                  match_capacity: int = 65536, topn: int = 2,
+                                  offset_stride: int = 0, heads=None,
+                                  rank_candidates: int = 0, uviews=None,
+                                  u_steps: int = 0, vote_rank: str = "pruned",
+                                  expand_block: int = 0,
+                                  expand_runs: int = 0):
+    """Match a (Bq, Q) stack against a spanned store's views in one
+    dispatch. Returns (RawMatch of (Bq, ...) tensors, (Bq,) span_max): each
+    clip's clamp signal (its largest per-span count, or its total on the
+    stacked layout's shared budget).
+
+    ``vote_rank="pruned"`` with ``rank_candidates > 0`` ranks each clip
+    with the pruned rank and returns (RawMatch, span_max, oks), ``oks`` the
+    per-clip certificate: as in the JAX package, a clip whose certificate
+    failed has a row that is not exact and must be matched again alone.
+    Any other rank is the sort rank (the scan rank gives the same
+    RawMatch). ``offset_stride``, ``heads``, ``uviews`` and ``u_steps`` are
+    the JAX signature's and ignored."""
+    check_vote_key(n_songs, delta_range)
+    sid, delta, p, valid, total, span_max, n_dropped = expand_spans_stack(
+        span_arrays, q_hi, q_lo, q_ex, q_t, q_valid,
+        match_capacity=match_capacity,
+        expand_block=expand_block if _is_stacked(span_arrays) else 0,
+        expand_runs=expand_runs)
+    first = q_first.gather(1, p)
+    kw = dict(n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
+              topn=topn)
+    if vote_rank == "pruned" and rank_candidates > 0:
+        rows = [_pruned_vote_rank(sid[i], delta[i], first[i], valid[i],
+                                  total[i], n_dropped[i],
+                                  n_candidates=rank_candidates, **kw)
+                for i in range(sid.shape[0])]
+        raw = RawMatch(*(torch.stack(f) for f in zip(*(r for r, _ in rows))))
+        return raw, span_max, torch.stack([ok for _, ok in rows])
+    blk = expand_block if _is_stacked(span_arrays) else 0
+    raw = sort_rank(sid, delta, first, valid, total, n_dropped,
+                    prefix=match_capacity if blk else 0, **kw)
+    return raw, span_max
 
 
 def batched_raw_to_host(raw: RawMatch) -> RawMatch:

@@ -30,6 +30,11 @@ matches a batch in one dispatch; one query is a stack of one. The JAX
 package switches from dense to the others past
 ``config.sparse_vote_threshold`` vote bins; so does the port, and every
 caller picks one by name through ``match_by_rank``.
+
+A spanned store (``index/devmerge.SpannedDeviceStore``) is matched by
+``match_query_sparse_spanned`` / ``match_query_pruned_spanned``: every
+span's runs expand into one vote stream (``expand_spans_stack``), ranked
+as one index's would be.
 """
 
 from __future__ import annotations
@@ -739,9 +744,17 @@ def match_query_pruned(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
     sid, delta, p, valid, total, n_dropped = _expand(
         index, q_hi, q_lo, q_ex, q_t, q_valid, match_capacity=match_capacity,
         expand_block=expand_block, expand_runs=expand_runs, bounds=bounds)
-    first = _take_first(q_first, p, expand_block)
-    kw = dict(n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
-              topn=topn)
+    return _pruned_or_sort(
+        sid, delta, _take_first(q_first, p, expand_block), valid, total,
+        n_dropped, n_songs=n_songs, delta_min=delta_min,
+        delta_range=delta_range, topn=topn, n_candidates=n_candidates)
+
+
+def _pruned_or_sort(sid, delta, first, valid, total, n_dropped, *,
+                    n_candidates: int, **kw):
+    """The pruned rank of one vote stream where its certificate holds,
+    else the sort rank, selected field by field on the device. Returns
+    (RawMatch, rank_exact)."""
     raw_p, ok = _pruned_vote_rank(sid, delta, first, valid, total, n_dropped,
                                   n_candidates=n_candidates, **kw)
     raw_s = _sparse_vote_rank(sid, delta, first, valid, total, n_dropped, **kw)
@@ -784,6 +797,175 @@ def query_total(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid, *,
     if with_bounds:
         return total, lb, ub
     return total
+
+
+# ---- spanned stores (index/devmerge.SpannedDeviceStore) ------------------
+def _is_stacked(spans) -> bool:
+    """A consolidated store's one view of (n_spans, span_rows) columns,
+    not a tuple of per-span views."""
+    return isinstance(spans, DeviceIndex)
+
+
+def span_bounds(stacked: DeviceIndex, q_hi, q_lo, q_ex, q_valid):
+    """Span-local (lb, ub) of queries of any shape in every span of the
+    stacked layout: (n_spans, *query shape), one batched search."""
+    shape = q_hi.shape
+    lb, ub = lexi_bounds(stacked, *(a.reshape(-1)
+                                    for a in (q_hi, q_lo, q_ex, q_valid)))
+    return lb.view(-1, *shape), ub.view(-1, *shape)
+
+
+def expand_spans_stack(spans, q_hi, q_lo, q_ex, q_t, q_valid, *,
+                       match_capacity: int, expand_block: int = 0,
+                       expand_runs: int = 0, bounds=None):
+    """``expand_stack`` of a (Bq, Q) query stack over a spanned store.
+
+    Per-span views: each span is searched and expanded on its own, each
+    clamped at ``match_capacity``, and the vote streams are concatenated
+    to (Bq, n_spans * slots); ``span_max``, the largest per-span total, is
+    the clamp signal. The stacked view: one batched search gives (n_spans,
+    Bq, Q) span-local bounds, which become run bounds ``s * span_rows +
+    row`` in the flat (n_spans * span_rows) payload, span-major (run ``s *
+    Q + lane``), and every span's runs share ONE budget of
+    ``match_capacity`` (blocked with ``expand_block``, under
+    ``expand_runs * n_spans`` nonempty runs); the clamp signal is then the
+    total. Returns (sid, delta, p, valid, total, span_max, n_dropped), ``p``
+    the owning query lane."""
+    if not _is_stacked(spans):
+        if bounds is not None:
+            raise ValueError("precomputed bounds need the stacked layout")
+        shape = q_hi.shape
+        parts = []
+        for view in spans:
+            lb, ub = lexi_bounds(view, *(a.reshape(-1) for a in
+                                         (q_hi, q_lo, q_ex, q_valid)))
+            parts.append(expand_stack(
+                view, lb.view(shape), ub.view(shape), q_t, q_valid,
+                match_capacity=match_capacity))
+        sid, delta, p, valid = (torch.cat([x[i] for x in parts], 1)
+                                for i in range(4))
+        totals = torch.stack([x[4] for x in parts])
+        n_dropped = torch.stack([x[5] for x in parts]).sum(0)
+        return (sid, delta, p, valid, totals.sum(0), totals.max(0).values,
+                n_dropped)
+    n_spans, span_rows = spans.key64.shape
+    if expand_block and span_rows % expand_block:
+        raise ValueError(f"span_rows {span_rows} not a multiple of the block "
+                         f"size {expand_block}")
+    bq, n_q = q_hi.shape
+    lb, ub = (bounds if bounds is not None
+              else span_bounds(spans, q_hi, q_lo, q_ex, q_valid))
+    base = (torch.arange(n_spans, device=lb.device) * span_rows)[:, None, None]
+    lb, ub = ((x + base).permute(1, 0, 2).reshape(bq, n_spans * n_q)
+              for x in (lb, ub))
+    flat = DeviceIndex(None, None, spans.payload.reshape(-1), spans.n_rows,
+                       spans.stride)
+    sid, delta, p, valid, total, n_dropped = expand_stack(
+        flat, lb, ub, q_t.repeat(1, n_spans), q_valid.repeat(1, n_spans),
+        match_capacity=match_capacity, expand_block=expand_block,
+        expand_runs=expand_runs * n_spans)
+    return sid, delta, p % n_q, valid, total, total, n_dropped
+
+
+def _expand_any_spans(spans, q_hi, q_lo, q_ex, q_t, q_valid, q_first, *,
+                      match_capacity: int, expand_block: int = 0,
+                      expand_runs: int = 0, bounds=None):
+    """``expand_spans_stack`` of one query (a stack of one); the blocked
+    expansion applies to the stacked layout only, as in the JAX package.
+    Returns flat (sid, delta, first, valid) and 0-dim (total, span_max,
+    n_dropped)."""
+    blk = expand_block if _is_stacked(spans) else 0
+    if bounds is not None:
+        bounds = tuple(b[:, None] for b in bounds)
+    out = expand_spans_stack(
+        spans, *(a[None] for a in (q_hi, q_lo, q_ex, q_t, q_valid)),
+        match_capacity=match_capacity, expand_block=blk,
+        expand_runs=expand_runs, bounds=bounds)
+    sid, delta, p, valid, total, span_max, n_dropped = (a[0] for a in out)
+    return (sid, delta, _take_first(q_first, p, blk), valid, total, span_max,
+            n_dropped)
+
+
+def query_total_spanned(spans, q_hi, q_lo, q_ex, q_valid, *, heads=None,
+                        uviews=None, u_steps: int = 0,
+                        with_bounds: bool = False):
+    """``query_total`` over a spanned store: the exact matched-row count
+    summed over the spans, one search and no expansion. ``with_bounds``
+    (stacked layout only) also returns the (n_spans, Q) bounds for a later
+    match to reuse. ``heads``, ``uviews`` and ``u_steps`` are the JAX
+    package's search accelerators, accepted for its signature and
+    ignored: the port's bounds are exact without them."""
+    if not _is_stacked(spans):
+        if with_bounds:
+            raise ValueError("with_bounds needs the stacked layout")
+        return torch.stack([query_total(view, q_hi, q_lo, q_ex, q_valid)
+                            for view in spans]).sum()
+    lb, ub = span_bounds(spans, q_hi, q_lo, q_ex, q_valid)
+    total = torch.where(q_valid, ub - lb, 0).sum()
+    if with_bounds:
+        return total, lb, ub
+    return total
+
+
+def match_query_sparse_spanned(spans, q_hi, q_lo, q_ex, q_t, q_valid,
+                               q_first, *, n_songs: int, delta_min: int,
+                               delta_range: int, match_capacity: int = 65536,
+                               topn: int = 2, offset_stride: int = 0,
+                               heads=None, uviews=None, u_steps: int = 0,
+                               vote_rank: str = "sort", expand_block: int = 0,
+                               expand_runs: int = 0, bounds=None,
+                               with_bounds: bool = False):
+    """``match_query_sparse`` over a spanned store (``query_cols()`` of
+    ``SpannedDeviceStore``: per-span views or the stacked one).
+
+    A (song, delta) may have rows in any span, so every span is searched
+    and their vote streams are ranked together: the rank sees the same
+    multiset of votes as over one flat index, so the result is the flat
+    match's whenever nothing was clamped. Returns (RawMatch, span_max):
+    ``span_max`` is the clamp signal to hold against ``match_capacity``,
+    the largest per-span count per span, the total when stacked (one
+    shared budget, see ``expand_spans_stack``). ``with_bounds`` (stacked
+    only) also returns the (n_spans, Q) bounds, for a re-dispatch to pass
+    back as ``bounds``. ``offset_stride``, ``heads``, ``uviews`` and
+    ``u_steps`` are accepted for the JAX signature and ignored: the views
+    carry the stride, and the port's searches need no accelerator."""
+    check_vote_key(n_songs, delta_range)
+    stacked = _is_stacked(spans)
+    if with_bounds and not stacked:
+        raise ValueError("with_bounds needs the stacked layout")
+    if with_bounds and bounds is None:
+        bounds = span_bounds(spans, q_hi, q_lo, q_ex, q_valid)
+    sid, delta, first, valid, total, span_max, n_dropped = _expand_any_spans(
+        spans, q_hi, q_lo, q_ex, q_t, q_valid, q_first,
+        match_capacity=match_capacity, expand_block=expand_block,
+        expand_runs=expand_runs, bounds=bounds)
+    raw = _rank_by_name(vote_rank)(
+        sid, delta, first, valid, total, n_dropped, n_songs=n_songs,
+        delta_min=delta_min, delta_range=delta_range, topn=topn,
+        prefix=match_capacity if expand_block and stacked else 0)
+    if with_bounds:
+        return raw, span_max, bounds[0], bounds[1]
+    return raw, span_max
+
+
+def match_query_pruned_spanned(spans, q_hi, q_lo, q_ex, q_t, q_valid,
+                               q_first, *, n_songs: int, delta_min: int,
+                               delta_range: int, match_capacity: int = 65536,
+                               topn: int = 2, offset_stride: int = 0,
+                               heads=None, n_candidates: int = 256,
+                               uviews=None, u_steps: int = 0):
+    """``match_query_sparse_spanned`` with the candidate-pruned rank; always
+    element-identical to it (the sort rank where the certificate fails,
+    selected on the device). Returns (RawMatch, span_max, rank_exact)."""
+    check_vote_key(n_songs, delta_range)
+    sid, delta, first, valid, total, span_max, n_dropped = _expand_any_spans(
+        spans, q_hi, q_lo, q_ex, q_t, q_valid, q_first,
+        match_capacity=match_capacity)
+    raw, ok = _pruned_or_sort(
+        sid, delta, first, valid, total, n_dropped, n_songs=n_songs,
+        delta_min=delta_min, delta_range=delta_range, topn=topn,
+        n_candidates=n_candidates)
+    return raw, span_max, ok
 
 
 def raw_to_host(raw: RawMatch, *extra: torch.Tensor):

@@ -14,7 +14,8 @@ everything on the device and reads back once:
    past ``sparse_threshold`` vote bins one of the sparse ranks.
 
 ``fingerprint_probe_on_device`` runs steps 1-2 and the exact-total
-search instead of step 3, for the bounds-first escalation policy.
+search instead of step 3, for the bounds-first escalation policy;
+``recognize_on_device_spanned`` runs them against a spanned store.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from ..index.search import query_key64
 from ..index.store import DeviceIndex
 from ..ops.fingerprint import (Fingerprints, fingerprint_batch,
                                fingerprint_batch_fused)
-from .lookup import match_by_rank, query_total
+from .lookup import (_expand_any_spans, _is_stacked, _pruned_or_sort,
+                     _rank_by_name, check_vote_key, match_by_rank, query_total)
 
 _M32 = 0xFFFFFFFF
 
@@ -176,3 +178,50 @@ def fingerprint_probe_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
                                 with_bounds=True)
     return ((sort_hi, lo, ex, t1, q_valid, q_first), n_pairs, fp.n_peaks[0],
             n_hashes_total, total, lb, ub)
+
+
+def recognize_on_device_spanned(samples: torch.Tensor, n_valid: torch.Tensor,
+                                span_arrays, *, fs: int = 44100,
+                                wsize: int = 4096, hop: int = 2048,
+                                amp_min: float = 10.0, radius: int = 10,
+                                fan_value: int = 5, min_dt: int = 0,
+                                max_dt: int = 200, peak_capacity: int = 4096,
+                                n_songs: int, delta_min: int,
+                                delta_range: int, match_capacity: int = 16384,
+                                topn: int = 2, offset_stride: int = 0,
+                                use_fused: bool = True,
+                                query_capacity: int = 4096, heads=None,
+                                rank_candidates: int = 0, uviews=None,
+                                u_steps: int = 0, vote_rank: str = "pruned",
+                                expand_block: int = 0, expand_runs: int = 0):
+    """``recognize_on_device`` against a spanned store's views
+    (``SpannedDeviceStore.query_cols()``): fingerprint and dedup as there,
+    then every span's expansion and one sparse rank
+    (``lookup.match_query_sparse_spanned``'s). Returns (RawMatch,
+    span_max, n_pairs, n_peaks, n_hashes_total) on the device; the caller
+    holds ``span_max`` against ``match_capacity``. ``offset_stride``,
+    ``heads``, ``uviews`` and ``u_steps`` are the JAX signature's and
+    ignored."""
+    # the ranks below take no guard of their own
+    check_vote_key(n_songs, delta_range)
+    fp = _fingerprint_clip(
+        samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
+        radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
+        peak_capacity=peak_capacity, use_fused=use_fused)
+    (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
+     n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
+    sid, delta, first, valid, total, span_max, n_dropped = _expand_any_spans(
+        span_arrays, sort_hi, lo, ex, t1, q_valid, q_first,
+        match_capacity=match_capacity, expand_block=expand_block,
+        expand_runs=expand_runs)
+    kw = dict(n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
+              topn=topn)
+    if vote_rank == "pruned" and rank_candidates > 0:
+        raw, _ok = _pruned_or_sort(sid, delta, first, valid, total, n_dropped,
+                                   n_candidates=rank_candidates, **kw)
+    else:
+        blocked = expand_block and _is_stacked(span_arrays)
+        raw = _rank_by_name(vote_rank if vote_rank != "pruned" else "sort")(
+            sid, delta, first, valid, total, n_dropped,
+            prefix=match_capacity if blocked else 0, **kw)
+    return raw, span_max, n_pairs, fp.n_peaks[0], n_hashes_total

@@ -27,10 +27,11 @@ host index's place, as in the JAX package: its rows sorted by (key64, ex,
 payload), its sentinel rows intact and its payload below ``n_songs *
 stride``, each one reduction on its device, and its rows as many as the
 catalog records. Deferred-sort appends still pending are a WARNING (their
-order is not checked; the next query sorts them). A spanned SIA's store
-reports as the JAX package's ``SpannedDeviceStore`` does, with its
-errors, and ``spans_checked`` counts the ``span_rows`` chunks of its
-sorted rows (the chunks its span-wise file would hold).
+order is not checked; the next query sorts them). A spanned SIA's
+``SpannedDeviceStore`` is checked span by span (each stacked row of a
+consolidated one too) with the JAX package's errors, one read-back for
+all of them; ``spans_checked`` counts the non-empty spans without pending
+appends, as the JAX package's does.
 
 Catalog-side (always):
 
@@ -77,51 +78,69 @@ def _device_checks(dix) -> Dict[str, object]:
             "payload_max": int(p_max)}
 
 
-def _store_checks(store) -> Dict[str, object]:
-    """(sorted, sentinels intact, payload max) of a device store, each one
-    reduction on its device; deferred-sort appends still pending are not
-    held to the order, the rows before them are."""
-    n = store.n_valid
-    k, e, p = (c[:n] for c in store.cols)
-    ok = rows_sorted(*(c[: store._sorted_rows] for c in store.cols))
-    pad = torch.all(store.cols[0][n:] == _INT64_MAX) \
-        & torch.all(store.cols[1][n:] == _INT64_MAX)
-    p_max = p.max() if n else p.new_zeros(())
-    s_ok, pad_ok, p_max = torch.stack(
-        [ok.to(torch.int64), pad.to(torch.int64), p_max]).tolist()
-    return {"sorted": bool(s_ok), "sentinels": bool(pad_ok),
-            "payload_max": int(p_max)}
+def _store_parts(store):
+    """(cols, n_valid, sorted rows) of a flat store, or of every non-empty
+    span of a spanned one (its stacked rows when consolidated)."""
+    if not getattr(store, "is_spanned", False):
+        return [(store.cols, store.n_valid, store._sorted_rows)]
+    parts = [(s.cols, s.n_valid, s._sorted_rows) for s in store.spans
+             if s.n_valid]
+    if store.is_stacked:
+        parts += [(tuple(c[i] for c in store._stacked[:3]), nv, nv)
+                  for i, nv in enumerate(store._stacked_valids) if nv]
+    return parts
+
+
+def _store_checks(parts) -> Dict[str, object]:
+    """(sorted, sentinels intact, payload max) over a store's parts, each
+    one reduction on the device and one read-back for all of them;
+    deferred-sort appends still pending are not held to the order, the
+    rows before them are."""
+    flags, maxes = [], []
+    for cols, n, sorted_rows in parts:
+        flags.append(rows_sorted(*(c[:sorted_rows] for c in cols)))
+        flags.append(torch.all(cols[0][n:] == _INT64_MAX)
+                     & torch.all(cols[1][n:] == _INT64_MAX))
+        maxes.append(cols[2][:n].max() if n else cols[2].new_zeros(()))
+    if not parts:
+        return {"sorted": True, "sentinels": True, "payload_max": 0}
+    host = torch.stack([f.to(torch.int64) for f in flags] + maxes).tolist()
+    k = len(flags)
+    return {"sorted": all(host[0:k:2]), "sentinels": all(host[1:k:2]),
+            "payload_max": max(host[k:])}
 
 
 def _check_store(store, catalog_total: int, errors: List[str],
-                 warnings: List[str], checks: Dict[str, object],
-                 span_rows: int = 0) -> None:
-    """The device store's branch: the JAX package's store branch, and with
-    ``span_rows`` its spanned store's names and errors."""
-    checks["store"] = "SpannedDeviceStore" if span_rows else "DeviceIndex"
+                 warnings: List[str], checks: Dict[str, object]) -> None:
+    """The device store's branch: the JAX package's store branch, with its
+    spanned store's names and errors for a ``SpannedDeviceStore``."""
+    spanned = getattr(store, "is_spanned", False)
+    checks["store"] = type(store).__name__
     checks["resident"] = True
     checks["index_hashes"] = store.n_valid
     checks["capacity"] = store.capacity
-    checks["spans_checked"] = (-(-store._sorted_rows // span_rows)
-                               if span_rows else int(store._sorted_rows > 0))
-    if store._unsorted:
+    parts = _store_parts(store)
+    pending = sum(sorted_rows < n for _c, n, sorted_rows in parts)
+    checks["spans_checked"] = (len(parts) - pending if spanned
+                               else int(store._sorted_rows > 0))
+    if pending:
         warnings.append(
-            "1 span(s) hold deferred-sort appends — queries require "
-            "finalize() first (sortedness not checked for those)"
-            if span_rows else
+            f"{pending} span(s) hold deferred-sort appends — queries "
+            "require finalize() first (sortedness not checked for those)"
+            if spanned else
             "the device store holds deferred-sort appends — queries "
             "finalize them first (their order is not checked)")
-    dev = _store_checks(store)
+    dev = _store_checks(parts)
     if not dev["sorted"]:
         errors.append(("device span key columns are not sorted"
-                       if span_rows else "device store rows are not sorted")
+                       if spanned else "device store rows are not sorted")
                       + " (binary search would be unsound)")
     if not dev["sentinels"]:
         errors.append("device store padding rows are not sentinels")
     limit = max(store.n_songs, 1) * store.stride
     if store.n_valid and dev["payload_max"] >= limit:
         errors.append(
-            f"{'packed' if span_rows else 'device store'} payload max "
+            f"{'packed' if spanned else 'device store'} payload max "
             f"{dev['payload_max']} exceeds n_songs*stride "
             f"({max(store.n_songs, 1)}*{store.stride}) — "
             "song id or offset out of range")
@@ -168,8 +187,7 @@ def check_integrity(sia, deep: bool = True) -> Dict:
     store = sia._dev_store
     if store is not None:
         with sia._upload_lock:
-            _check_store(store, catalog_total, errors, warnings, checks,
-                         sia.device_span_rows)
+            _check_store(store, catalog_total, errors, warnings, checks)
         return {"ok": not errors, "errors": errors, "warnings": warnings,
                 "checks": checks}
 

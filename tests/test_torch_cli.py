@@ -246,9 +246,8 @@ def test_serve_span_rows(workspace, tmp_path, monkeypatch, capsys):
 
 
 def test_serve_consolidate(workspace, tmp_path, monkeypatch, capsys):
-    """serve --consolidate calls consolidate_index, which leaves the store
-    as it was and open to ingest (the JAX package's stacked store refuses
-    ingest)."""
+    """serve --consolidate calls consolidate_index, which stacks the store
+    for serving; ingest into it then raises, as in the JAX package."""
     from shazam_tpu_torch.api import SIA
     from shazam_tpu_torch.audio import synth_song
 
@@ -261,11 +260,11 @@ def test_serve_consolidate(workspace, tmp_path, monkeypatch, capsys):
          "4096")
     sia, _ = _serve(monkeypatch, capsys, db, "--span-rows", "4096",
                     "--consolidate")
-    assert calls == [sia]
+    assert calls == [sia] and sia._dev_store.is_stacked
     n0 = sia._dev_store.n_valid
-    st = sia.ingest_arrays([("fresh", synth_song(7, duration_s=4.0,
-                                                 seed=5))])
-    assert st["ingested"] == 1 and sia._dev_store.n_valid == n0 + st["hashes"]
+    with pytest.raises(ValueError, match="consolidated"):
+        sia.ingest_arrays([("fresh", synth_song(7, duration_s=4.0, seed=5))])
+    assert sia._dev_store.n_valid == n0 > 0
 
 
 def test_config_file(workspace, tmp_path, capsys):

@@ -643,6 +643,67 @@ def test_apriori_on_cuda_equals_cpu(cuda):
                 assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
+def test_spanned_store_on_cuda_equals_cpu(cuda):
+    """A ``SpannedDeviceStore`` on the card takes the same runs as one on
+    the CPU (merged, appended, host pieces, span rolls), holds the same
+    spans and matches alike per span and consolidated, with the same
+    ``span_max``."""
+    from shazam_tpu_torch.index.devmerge import (SpannedDeviceStore,
+                                                 host_cols)
+    from shazam_tpu_torch.index.store import FingerprintIndex
+    from shazam_tpu_torch.match.lookup import match_query_sparse_spanned
+
+    rng = np.random.default_rng(12)
+
+    def run(n):
+        cols = [rng.integers(0, 64, n, dtype=np.uint32),
+                rng.integers(0, 1 << 32, n, dtype=np.uint32),
+                rng.integers(0, 3, n, dtype=np.uint32),
+                rng.integers(0, 40, n, dtype=np.uint32),
+                rng.integers(0, 3000, n, dtype=np.uint32)]
+        order = np.lexsort(cols[::-1])
+        return FingerprintIndex(*(c[order] for c in cols), n_songs=40,
+                                max_offset=int(cols[4].max()))
+
+    base = run(20_000)
+    stores = {d: SpannedDeviceStore.from_host(base, 8192, device=d)
+              for d in (cuda, "cpu")}
+    adds = [run(3_000 + 97 * k) for k in range(6)]
+    for k, add in enumerate(adds):
+        for d, store in stores.items():
+            if k % 3 == 0:
+                store.merge(add)
+            else:
+                cols = tuple(torch.from_numpy(c).to(d)
+                             for c in host_cols(add, store.stride))
+                absorb = store.append_run if k % 3 == 1 else \
+                    store.merge_device_run
+                absorb(cols, add.n_hashes, add.n_songs, add.max_offset)
+    gpu, cpu = stores[cuda], stores["cpu"]
+    assert len(gpu.spans) == len(cpu.spans) >= 3
+    q_rows = base.key_hi[::97], base.key_lo[::97], base.key_ex[::97]
+    n_q = len(q_rows[0])
+    q = [torch.from_numpy(np.asarray(a, np.int64)) for a in q_rows] + [
+        torch.from_numpy(rng.integers(0, 50, n_q)),
+        torch.ones(n_q, dtype=torch.bool), torch.ones(n_q, dtype=torch.bool)]
+    kw = dict(n_songs=40, delta_min=-64, delta_range=4096 + 128,
+              match_capacity=4096, topn=3)
+    for _layout in ("spans", "stacked"):
+        got = match_query_sparse_spanned(
+            gpu.query_cols(), *(a.to(cuda) for a in q), **kw)
+        want = match_query_sparse_spanned(cpu.query_cols(), *q, **kw)
+        for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+            assert torch.equal(a.cpu(), b)
+        gpu.consolidate()
+        cpu.consolidate()
+    assert gpu.is_stacked and gpu._stacked_valids == cpu._stacked_valids
+    for a, b in zip(gpu._stacked, cpu._stacked):
+        assert torch.equal(a.cpu(), b)
+    host_gpu, host_cpu = gpu.to_host(), cpu.to_host()
+    for name in ("key_hi", "key_lo", "key_ex", "song_id", "offset"):
+        assert np.array_equal(getattr(host_gpu, name), getattr(host_cpu, name))
+
+
 def test_spanned_round_trip_on_cuda(cuda, tmp_path):
     """A spanned SIA on the card saves the span-wise file, which loads
     straight onto a store on the card and flat on the CPU, rows equal."""

@@ -1,13 +1,13 @@
 """Port parity for spans: ``SIA(device_span_rows=...)``, the span-wise file
 format and fsck's spanned branch, on the CPU.
 
-The port keeps the JAX package's spanned API and file format over its one
-flat device store. Mirrors of the ``tests/test_spanned.py`` cases that go
-through ``SIA``'s API run the same songs through both packages: rows and
-answers must be equal. Span-wise files cross between the packages both
-ways. Two differences are deliberate (``ROADMAP.md`` §3), each with a
-test: a consolidated or stacked store still takes ingest, and a device
-run longer than ``span_rows`` is accepted.
+Mirrors of the ``tests/test_spanned.py`` cases that go through ``SIA``'s
+API run the same songs through both packages: rows and answers must be
+equal, and what JAX's spanned store refuses (ingest into a consolidated
+or stacked store, a device run longer than ``span_rows``) the port's
+refuses with the same message. Span-wise files cross between the
+packages both ways. The store and matchers themselves are held to JAX's
+in ``tests/test_torch_spanned_store.py``.
 """
 
 import dataclasses
@@ -146,9 +146,9 @@ def test_spanned_host_ingest_and_from_host():
 
 
 def test_consolidate_changes_nothing_and_ingest_stays_open():
-    """``test_spanned.py:242``: consolidation keeps every answer; the JAX
-    package's stacked store then refuses ingest, the port's takes it (a
-    deliberate difference)."""
+    """``test_spanned.py:242``: consolidation stacks the store and keeps
+    every answer; ingest after it raises JAX's message in both packages,
+    and the answers stand."""
     songs = _songs(6)
     sia = _port(device_span_rows=SPAN)
     ref = _jax(device_span_rows=SPAN)
@@ -159,16 +159,20 @@ def test_consolidate_changes_nothing_and_ingest_stays_open():
     host_before = sia.index
     sia.consolidate_index()
     ref.consolidate_index()
+    assert sia._dev_store.is_stacked and ref._dev_store.is_stacked
     assert _answer(sia.recognize_samples([clip])) == before \
         == _answer(ref.recognize_samples([clip]))
     assert _answer(sia.recognize_clip(clip))[:3] == before[:3]
     _index_equal(host_before, sia.index)
 
     fresh = [n for n in songs[4:]]
-    with pytest.raises(ValueError, match="consolidated"):
-        _device_ingest(ref, fresh, jax_side=True)
-    _device_ingest(sia, fresh)
-    assert _answer(sia.recognize_samples([_clip(songs, 5)]))[0] == "s5"
+    errors = []
+    for s_, jax_side in ((ref, True), (sia, False)):
+        with pytest.raises(ValueError, match="consolidated") as e:
+            _device_ingest(s_, fresh, jax_side=jax_side)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    assert _answer(sia.recognize_samples([clip])) == before
 
 
 def test_spanned_lifecycle_delete_save_reload(tmp_path):
@@ -262,9 +266,9 @@ def test_empty_spanned_save_load(tmp_path):
 
 
 def test_stacked_load_api_end_to_end(tmp_path):
-    """``test_spanned.py:537``: load_index(stacked=True) gives the same
-    store and answers; JAX's stacked store refuses ingest, the port's
-    takes it (a deliberate difference)."""
+    """``test_spanned.py:537``: load_index(stacked=True) gives the stacked
+    store and the same answers; both packages' stacked stores refuse
+    ingest."""
     songs = _songs(5)
     sia = _port(device_span_rows=SPAN)
     sia.ingest_arrays(songs)
@@ -277,6 +281,7 @@ def test_stacked_load_api_end_to_end(tmp_path):
     fresh = _port(device_span_rows=SPAN)
     fresh.catalog = sia.catalog
     fresh.load_index(path, stacked=True)
+    assert fresh._dev_store.is_stacked
     after = fresh.recognize_samples([clip])
     assert after["results"] == before["results"]
     _index_equal(fresh.index, sia.index)
@@ -287,11 +292,10 @@ def test_stacked_load_api_end_to_end(tmp_path):
     assert ref._dev_store.is_stacked
     assert _answer(ref.recognize_samples([clip])) == _answer(after)
     new_audio = np.concatenate([songs[0][1], songs[1][1]])
-    with pytest.raises(ValueError, match="consolidated"):
-        ref.ingest_arrays([("s9", new_audio)])
-    st = fresh.ingest_arrays([("s9", new_audio)])
-    assert st["ingested"] == 1
-    assert fresh._dev_store.n_valid == sia.index.n_hashes + st["hashes"]
+    for s_ in (ref, fresh):
+        with pytest.raises(ValueError, match="consolidated"):
+            s_.ingest_arrays([("s9", new_audio)])
+    assert fresh._dev_store.n_valid == sia.index.n_hashes
 
 
 def test_spanned_torn_delete_reconciles_on_load(tmp_path):
@@ -463,19 +467,22 @@ def test_unpackable_catalog_is_refused():
 
 
 def test_run_longer_than_span_rows_is_accepted():
-    """JAX refuses a device run of more than span_rows rows; the port's
-    flat store takes it (a deliberate difference), rows equal to a resident
-    SIA's."""
+    """A device run of more than span_rows rows is refused by both
+    packages, with JAX's message, and the store keeps no row of it; a
+    resident SIA's flat store takes the same run."""
     songs = _songs(2, secs=12.0)
     kw = dict(per_song_hash_capacity=8192, blen=3 << 18)
-    ref = _jax(device_span_rows=SPAN)
-    with pytest.raises(ValueError, match="exceeds span_rows"):
-        _device_ingest(ref, songs, jax_side=True, **kw)
-    spanned, single = _port(device_span_rows=SPAN), _port(device_resident=True)
-    for sia in (spanned, single):
-        _device_ingest(sia, songs, **kw)
-    assert spanned._dev_store.n_valid > SPAN
-    _index_equal(spanned.index, single.index)
+    errors = []
+    for make, jax_side in ((_jax, True), (_port, False)):
+        sia = make(device_span_rows=SPAN)
+        with pytest.raises(ValueError, match="exceeds span_rows") as e:
+            _device_ingest(sia, songs, jax_side=jax_side, **kw)
+        assert sia._dev_store.n_valid == 0
+        errors.append(str(e.value).split("(")[0])
+    assert errors[0] == errors[1]
+    single = _port(device_resident=True)
+    _device_ingest(single, songs, **kw)
+    assert single._dev_store.n_valid > SPAN
 
 
 def test_early_exit_on_a_spanned_sia_warns_and_runs_the_full_match():
@@ -523,8 +530,9 @@ def test_healthy_spanned_store_passes(spanned_sia):
 
 def test_spanned_corruptions_give_jax_errors(spanned_sia):
     store = spanned_sia._dev_store
-    store.cols[0][[0, 1]] = store.cols[0][[1, 0]].clone()
-    store.cols[2][5] = store.n_songs * store.stride + 1
+    span = store.spans[0]
+    span.cols[0][[0, 1]] = span.cols[0][[1, 0]].clone()
+    span.cols[2][5] = store.n_songs * store.stride + 1
     sid, n = min(spanned_sia.catalog.song_hashes_by_id().items())
     spanned_sia.catalog.update_song_hashes(sid, n + 2)
     report = check_integrity(spanned_sia)
@@ -536,15 +544,16 @@ def test_spanned_corruptions_give_jax_errors(spanned_sia):
 
 def test_spanned_pending_appends_warn(spanned_sia):
     store = spanned_sia._dev_store
-    n = store.n_valid
-    tail = tuple(c[n - 300: n].flip(0).clone() for c in store.cols)
-    store.n_valid = store._sorted_rows = n - 300
-    store.append_run(tail, 300, store.n_songs, store.max_offset)
+    span = store.active
+    n = span.n_valid
+    tail = tuple(c[n - 300: n].flip(0).clone() for c in span.cols)
+    span.n_valid = span._sorted_rows = n - 300
+    span.append_run(tail, 300, store.n_songs, store.max_offset)
     report = check_integrity(spanned_sia)
     assert report["ok"], report
-    assert any("span(s) hold deferred-sort appends" in w
-               for w in report["warnings"])
-    assert report["checks"]["spans_checked"] == -(-(n - 300) // SPAN)
+    assert "1 span(s) hold deferred-sort appends" in report["warnings"][0]
+    live = sum(s.n_valid > 0 for s in store.spans)
+    assert report["checks"]["spans_checked"] == live - 1 >= 1
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         spanned_sia.index   # finalizes without complaint

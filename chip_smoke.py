@@ -210,7 +210,7 @@ Phases (each raises on failure; any failure exits non-zero):
    100 rows whose mean ``correct`` equals the summary's and the
    ``ASSK_`` file's accuracy. ``tools.plot.plot_constellation`` renders
    30 s of song 0 where matplotlib is installed (which case is printed),
-   and ``utils.profiling.device_trace`` traces one clip into a Chrome
+   and ``profiling.device_trace`` traces one clip into a Chrome
    trace holding CUDA kernel events. K1-K3 must launch and pass a
    ``ShapeAudit``.
 
@@ -3037,7 +3037,7 @@ def recognition_sweep(device, seed: int) -> dict:
     equals the summary's accuracy and the ``ASSK_`` file's. The noisy and
     channel sweeps have no accuracy limit. Last, ``plot_constellation``
     renders the first SWEEP_PLOT_S of song 0 where matplotlib is
-    installed, and ``utils.profiling.device_trace`` traces one clean clip
+    installed, and ``profiling.device_trace`` traces one clean clip
     into a Chrome trace that must hold CUDA kernel events on the card."""
     import csv
     import importlib.util
@@ -3051,7 +3051,7 @@ def recognition_sweep(device, seed: int) -> dict:
     from shazam_tpu_torch.audio.synth_device import make_music_gen
     from shazam_tpu_torch.bench.harness import (BenchConfig,
                                                 run_recognition_sweep)
-    from shazam_tpu_torch.utils.profiling import device_trace
+    from shazam_tpu_torch.profiling import device_trace
 
     on_card = device.type == "cuda"
     out, secs = {}, {}

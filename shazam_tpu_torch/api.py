@@ -99,6 +99,7 @@ from .match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
 from .ops.fingerprint import (Fingerprints, fingerprint_batch,
                               fingerprint_batch_fused, fused_takes,
                               union_pairs)
+from .profiling import span, spanned
 
 MAX_PEAK_CAPACITY = 1 << 22
 QUERY_COLUMNS = ("hi", "lo", "ex", "t", "valid", "first")
@@ -147,6 +148,7 @@ def _start_download(fp: Fingerprints):
     return host, done, (bsz, lanes)
 
 
+@spanned("sia.readback")
 def _finish_download(pending) -> Fingerprints:
     """The host Fingerprints of a ``_start_download``."""
     host, done, (bsz, lanes) = pending
@@ -817,7 +819,8 @@ class SIA:
         cap = self.config.peak_capacity
         while True:
             fp = self._fingerprint(x, nv, cap)
-            n = int(fp.n_peaks[0])
+            with span("sia.readback"):
+                n = int(fp.n_peaks[0])
             if n <= cap or cap >= MAX_PEAK_CAPACITY:
                 return Fingerprints(*(a[0] for a in fp))
             while cap < n and cap < MAX_PEAK_CAPACITY:
@@ -1191,6 +1194,7 @@ class SIA:
             if u * 2 > a:
                 self._decide_boost += 1
 
+    @spanned("sia.recognize_clip")
     def recognize_clip(self, samples: np.ndarray,
                        topn: Optional[int] = None) -> Dict:
         """Lowest-latency recognition of one mono clip.
@@ -1209,7 +1213,7 @@ class SIA:
         blen = _bucket_len(len(samples))
         if (blen - self.config.window_size) // self.config.hop + 1 > 1 << 16:
             # > ~51 min: the on-device dedup packs offsets into 16 bits
-            return self.recognize_samples([samples], topn=topn)
+            return self._handoff(samples, topn, "long")
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(len(samples))
         n_songs = self._n_songs()
@@ -1243,13 +1247,32 @@ class SIA:
         raw, (n_pairs, n_peaks, n_hashes) = raw_to_host(
             raw, n_pairs, n_peaks, n_hashes)
         device_time = time.time() - t0
-        if (n_peaks > self.config.peak_capacity
-                or ((raw.total_rows > one_cap or raw.n_dropped > 0)
-                    and not self._decided(raw))
-                or n_hashes > q_cap):
-            return self.recognize_samples([samples], topn=topn)
+        reason = self._handoff_reason(
+            n_peaks, n_hashes, q_cap,
+            (raw.total_rows > one_cap or raw.n_dropped > 0)
+            and not self._decided(raw))
+        if reason:
+            return self._handoff(samples, topn, reason)
         return self._clip_result(raw, n_pairs, max(raw.total_rows, one_cap),
                                  device_time)
+
+    def _handoff_reason(self, n_peaks: int, n_hashes: int, q_cap: int,
+                        undecided: bool) -> Optional[str]:
+        """Why a clip's single pass cannot answer it, or None: its peaks
+        or its query lanes overflowed, or its clamped match is not
+        provably decided."""
+        if n_peaks > self.config.peak_capacity:
+            return "peaks"
+        if n_hashes > q_cap:
+            return "lanes"
+        return "undecided" if undecided else None
+
+    def _handoff(self, samples: np.ndarray, topn: Optional[int],
+                 reason: str) -> Dict:
+        """``recognize_samples`` for a clip its single pass could not
+        answer, ``reason`` naming the test that sent it on."""
+        with span("sia.handoff", reason=reason):
+            return self.recognize_samples([samples], topn=topn)
 
     def _recognize_clip_spanned(self, samples: np.ndarray, dev, *,
                                 n_songs: int, delta_min: int,
@@ -1271,11 +1294,11 @@ class SIA:
             vote_rank=self._rank_for(fast))
         raw, (span_max, n_pairs, n_peaks, n_hashes) = raw_to_host(raw, *counts)
         device_time = time.time() - t0
-        if (n_peaks > self.config.peak_capacity
-                or ((span_max > fast or raw.n_dropped > 0)
-                    and not self._decided(raw))
-                or n_hashes > q_cap):
-            return self.recognize_samples([samples], topn=topn)
+        reason = self._handoff_reason(
+            n_peaks, n_hashes, q_cap,
+            (span_max > fast or raw.n_dropped > 0) and not self._decided(raw))
+        if reason:
+            return self._handoff(samples, topn, reason)
         return self._clip_result(raw, n_pairs, max(raw.total_rows, fast),
                                  device_time)
 
@@ -1291,12 +1314,14 @@ class SIA:
         q_dev, *counts, lb, ub = fingerprint_probe_on_device(
             x, nv, index, **self._fp_kwargs(),
             use_fused=_fused_ok(self.config), query_capacity=q_cap)
-        counts = torch.stack([c.to(torch.int64) for c in counts]).cpu()
+        with span("sia.readback"):
+            counts = torch.stack([c.to(torch.int64) for c in counts]).cpu()
         n_pairs, n_peaks, n_hashes, total = (int(v) for v in counts)
-        if n_peaks > self.config.peak_capacity or n_hashes > q_cap:
+        reason = self._handoff_reason(n_peaks, n_hashes, q_cap, False)
+        if reason:
             # capacity overflow (peaks or query lanes): the two-pass path
             # escalates those capacities
-            return self.recognize_samples([samples], topn=topn)
+            return self._handoff(samples, topn, reason)
 
         caps = self._match_tiers()
         cap = next((c for c in caps if c >= total), caps[-1])
@@ -1395,48 +1420,51 @@ class SIA:
         through ``recognize_samples`` in stage 2. On a big index under
         bounds-first, the batched probe runs here too. None for no clips.
         """
-        t0 = time.time()
-        n_real = len(clips)
-        if n_real == 0:
+        if not len(clips):
             return None
-        n_clips = n_real
-        if pad_to_pow2:
-            n_clips = 1 << (n_real - 1).bit_length()
-        clips = [np.asarray(c) for c in clips]
-        batch, n_valid = _pad_rows(
-            clips + [np.zeros(0, np.float32)] * (n_clips - n_real),
-            max(_bucket_len(len(c)) for c in clips))
-        fp = _finish_download(self._launch_batch(
-            batch, n_valid, self.config.peak_capacity)[0])
-        peak_over = {i for i in range(n_real)
-                     if int(fp.n_peaks[i]) > self.config.peak_capacity}
-        queries = [prepare_query([]) if i in peak_over
-                   else prepare_query([Fingerprints(*(a[i] for a in fp))])
-                   for i in range(n_clips)]
-        q_cap = max(len(q.hi) for q in queries)
-        if q_pad_to is not None:
-            q_cap = max(q_cap, q_pad_to)
-        stack = {name: np.stack([np.pad(getattr(q, name),
-                                        (0, q_cap - len(q.hi)))
-                                 for q in queries])
-                 for name in QUERY_COLUMNS}
+        with span("sia.prepare_batch", clips=len(clips)):
+            t0 = time.time()
+            n_real = len(clips)
+            n_clips = n_real
+            if pad_to_pow2:
+                n_clips = 1 << (n_real - 1).bit_length()
+            clips = [np.asarray(c) for c in clips]
+            batch, n_valid = _pad_rows(
+                clips + [np.zeros(0, np.float32)] * (n_clips - n_real),
+                max(_bucket_len(len(c)) for c in clips))
+            fp = _finish_download(self._launch_batch(
+                batch, n_valid, self.config.peak_capacity)[0])
+            peak_over = {i for i in range(n_real)
+                         if int(fp.n_peaks[i]) > self.config.peak_capacity}
+            queries = [prepare_query([]) if i in peak_over
+                       else prepare_query([Fingerprints(*(a[i] for a in fp))])
+                       for i in range(n_clips)]
+            with span("query.prepare"):
+                q_cap = max(len(q.hi) for q in queries)
+                if q_pad_to is not None:
+                    q_cap = max(q_cap, q_pad_to)
+                stack = {name: np.stack([np.pad(getattr(q, name),
+                                                (0, q_cap - len(q.hi)))
+                                         for q in queries])
+                         for name in QUERY_COLUMNS}
 
-        q_dev = probe_totals = probe_bounds = None
-        if (not self._is_spanned and not self._decide_first()
-                and self.config.bounds_probe_min_rows):
-            index = self._ensure_device_index()
-            if (self._use_sparse(max(map(len, clips)))
-                    and self._big_index(index)):
-                q_dev = self._query_to_device(stack)
-                totals, lb, ub = query_totals_batched(
-                    index, q_dev[0], q_dev[1], q_dev[2], q_dev[4])
-                probe_totals = totals.cpu().numpy()
-                probe_bounds = (lb, ub)
-        return _PreparedBatch(
-            clips=clips, queries=queries, stack=stack, peak_over=peak_over,
-            topn=topn, match_capacity=match_capacity,
-            fingerprint_time=time.time() - t0, q_dev=q_dev,
-            probe_totals=probe_totals, probe_bounds=probe_bounds)
+            q_dev = probe_totals = probe_bounds = None
+            if (not self._is_spanned and not self._decide_first()
+                    and self.config.bounds_probe_min_rows):
+                index = self._ensure_device_index()
+                if (self._use_sparse(max(map(len, clips)))
+                        and self._big_index(index)):
+                    q_dev = self._query_to_device(stack)
+                    totals, lb, ub = query_totals_batched(
+                        index, q_dev[0], q_dev[1], q_dev[2], q_dev[4])
+                    probe_totals = totals.cpu().numpy()
+                    probe_bounds = (lb, ub)
+            return _PreparedBatch(
+                clips=clips, queries=queries, stack=stack, peak_over=peak_over,
+                topn=topn, match_capacity=match_capacity,
+                fingerprint_time=time.time() - t0, q_dev=q_dev,
+                probe_totals=probe_totals, probe_bounds=probe_bounds)
+
 
     def _batch_match(self, q_dev, n_samples: int, cap: int,
                      topn: Optional[int] = None, bounds=None) -> RawMatch:
@@ -1481,137 +1509,150 @@ class SIA:
         ``vote_rank="pruned"`` a clip whose certificate failed is matched
         again alone (the whole batch again by the sort rank when most did).
         """
-        clips, queries, peak_over = pb.clips, pb.queries, pb.peak_over
-        n_real = len(clips)
-        topn = pb.topn
-        n_samples = max(map(len, clips))
-        t0 = time.time()
-        index = self._ensure_device_index()
-        q_dev = pb.q_dev or self._query_to_device(pb.stack)
-        probe_bounds = None
-        spanned = self._is_spanned
-        use_sparse = self._use_sparse(n_samples)
-
-        def dispatch(cap, pruned=True):
-            """(host RawMatch, per-clip certificates or None, per-clip
-            clamp signals)."""
-            if not spanned:
-                raw = batched_raw_to_host(self._batch_match(
-                    q_dev, n_samples, cap, topn=topn, bounds=probe_bounds))
-                return raw, None, raw.total_rows[:n_real]
-            delta_min, delta_range = self._delta_params_for(n_samples)
-            n_cand = (self.config.rank_candidates if pruned and use_sparse
-                      and self._rank_for(cap) == "pruned" else 0)
-            out = match_queries_batched_spanned(
-                index, *q_dev, n_songs=self._n_songs(), delta_min=delta_min,
-                delta_range=delta_range, match_capacity=cap,
-                topn=topn or self.config.topn, rank_candidates=n_cand,
-                vote_rank="pruned" if n_cand else "sort",
-                expand_block=self._eblk_for_cap(
-                    self._expand_block_for_spanned(index), cap),
-                expand_runs=self.config.expand_block_runs)
-            oks = out[2].cpu().numpy()[:n_real] if n_cand else None
-            return (batched_raw_to_host(out[0]), oks,
-                    out[1].cpu().numpy()[:n_real])
-
-        tiers = self._match_tiers()
-        base_cap = pb.match_capacity or self.config.match_capacity
-        decide_first = self._decide_first()
-        big = (not spanned and use_sparse and self._big_index(index))
-        if big and decide_first:
-            if pb.match_capacity is None:
-                base_cap = self._decide_cap(tiers)
-        elif big:
-            if pb.probe_bounds is not None:
-                probe_totals, probe_bounds = pb.probe_totals, pb.probe_bounds
-            else:
-                totals, lb, ub = query_totals_batched(
-                    index, q_dev[0], q_dev[1], q_dev[2], q_dev[4])
-                probe_totals, probe_bounds = totals.cpu().numpy(), (lb, ub)
-            if pb.match_capacity is None:
-                need = int(probe_totals[:n_real].max())
-                max_stream = BATCH_GUARD_BYTES // (24 * n_real)
-                allowed = [c for c in tiers if c <= max_stream] or tiers[:1]
-                base_cap = min(next((c for c in tiers if c >= need),
-                                    tiers[-1]), allowed[-1])
-
-        raw, oks, clamp = dispatch(base_cap)
-        batch_cap = base_cap
-        decided_ids: set = set()
-        retried: Dict[int, Tuple] = {}
-        if oks is not None and (~oks).sum() > max(n_real // 2, 1):
-            # most certificates failed: the whole batch by the sort rank
-            raw, oks, clamp = dispatch(batch_cap, pruned=False)
-
-        def undecided(clamped):
-            """The clamped clips whose margin does not decide them (a clip
-            whose pruned certificate failed is never decided)."""
-            if not self.config.decision_escalation:
-                return clamped
-            margin_ok = (raw.top_votes[:n_real, 0] - raw.runner_votes[:n_real]
-                         > raw.n_dropped[:n_real])
-            if oks is not None:
-                margin_ok &= oks
-            decided_ids.update(int(i) for i in clamped if margin_ok[i])
-            return clamped[~margin_ok[clamped]]
-
-        if tiers[-1] > batch_cap:
-            over = undecided(np.nonzero(
-                (clamp > batch_cap) | (raw.n_dropped[:n_real] > 0))[0])
-            if big and decide_first and pb.match_capacity is None:
-                self._decide_record(n_real, len(over))
-            if len(over) > max(n_real // 2, 1):
-                cand_cap = next((c for c in tiers if c >= int(clamp.max())),
-                                tiers[-1])
-                m_bits = min(24, max(18, (cand_cap * 16 - 1).bit_length()))
-                if n_real * ((1 << m_bits) * 4 + 24 * cand_cap) \
-                        <= BATCH_GUARD_BYTES:
-                    batch_cap = cand_cap
-                    raw, oks, clamp = dispatch(batch_cap)
-                    decided_ids.clear()   # judged against the old dispatch
-                    over = undecided(np.nonzero(
-                        (clamp > batch_cap) | (raw.n_dropped[:n_real] > 0))[0])
-            for i in over:
-                retried[int(i)] = self._match_prepared(
-                    queries[i], len(clips[i]), topn=topn,
-                    min_capacity=int(clamp[i]))
-        if oks is not None:
-            # a failed certificate leaves a row that is not exact: alone,
-            # the pruned rank falls back to the sort rank on the device
-            for i in np.nonzero(~oks)[0]:
-                if int(i) not in retried and int(i) not in peak_over:
-                    retried[int(i)] = self._match_prepared(
-                        queries[i], len(clips[i]), topn=topn,
-                        min_capacity=max(int(clamp[i]), 1))
-        query_time = time.time() - t0
-
-        out = []
-        for i in range(n_real):
-            if i in peak_over:
-                out.append(self.recognize_samples([clips[i]], topn=topn))
-                continue
+        with span("sia.match_prepared_batch", clips=len(pb.clips)):
+            clips, queries, peak_over = pb.clips, pb.queries, pb.peak_over
+            n_real = len(clips)
+            topn = pb.topn
+            n_samples = max(map(len, clips))
             t0 = time.time()
-            if i in retried:
-                one, cap_i = retried[i]
-            else:
-                one = RawMatch(*(a[i] for a in raw))
-                # a clip that fit (its clamp signal: the total, or spanned
-                # its largest span), or is provably decided, reads as
-                # unaffected by the capacity
-                cap_i = (max(int(one.total_rows), batch_cap)
-                         if int(clamp[i]) <= batch_cap
-                         or i in decided_ids else batch_cap)
-            res = self._clip_result(one, queries[i].n_pairs, cap_i, 0.0)
-            align_time = time.time() - t0
-            res.update(
-                fingerprint_time=pb.fingerprint_time / n_real,
-                query_time=query_time / n_real, align_time=align_time,
-                total_time=(pb.fingerprint_time + query_time) / n_real
-                + align_time,
-                batch_fingerprint_time=pb.fingerprint_time,
-                batch_query_time=query_time, batch_size=n_real)
-            out.append(res)
-        return out
+            index = self._ensure_device_index()
+            q_dev = pb.q_dev or self._query_to_device(pb.stack)
+            probe_bounds = None
+            spanned = self._is_spanned
+            use_sparse = self._use_sparse(n_samples)
+
+            def dispatch(cap, pruned=True):
+                """(host RawMatch, per-clip certificates or None, per-clip
+                clamp signals)."""
+                if not spanned:
+                    raw = batched_raw_to_host(self._batch_match(
+                        q_dev, n_samples, cap, topn=topn,
+                        bounds=probe_bounds))
+                    return raw, None, raw.total_rows[:n_real]
+                delta_min, delta_range = self._delta_params_for(n_samples)
+                n_cand = (self.config.rank_candidates
+                          if pruned and use_sparse
+                          and self._rank_for(cap) == "pruned" else 0)
+                out = match_queries_batched_spanned(
+                    index, *q_dev, n_songs=self._n_songs(),
+                    delta_min=delta_min, delta_range=delta_range,
+                    match_capacity=cap,
+                    topn=topn or self.config.topn, rank_candidates=n_cand,
+                    vote_rank="pruned" if n_cand else "sort",
+                    expand_block=self._eblk_for_cap(
+                        self._expand_block_for_spanned(index), cap),
+                    expand_runs=self.config.expand_block_runs)
+                oks = out[2].cpu().numpy()[:n_real] if n_cand else None
+                return (batched_raw_to_host(out[0]), oks,
+                        out[1].cpu().numpy()[:n_real])
+
+            tiers = self._match_tiers()
+            base_cap = pb.match_capacity or self.config.match_capacity
+            decide_first = self._decide_first()
+            big = (not spanned and use_sparse and self._big_index(index))
+            if big and decide_first:
+                if pb.match_capacity is None:
+                    base_cap = self._decide_cap(tiers)
+            elif big:
+                if pb.probe_bounds is not None:
+                    probe_totals = pb.probe_totals
+                    probe_bounds = pb.probe_bounds
+                else:
+                    totals, lb, ub = query_totals_batched(
+                        index, q_dev[0], q_dev[1], q_dev[2], q_dev[4])
+                    probe_totals = totals.cpu().numpy()
+                    probe_bounds = (lb, ub)
+                if pb.match_capacity is None:
+                    need = int(probe_totals[:n_real].max())
+                    max_stream = BATCH_GUARD_BYTES // (24 * n_real)
+                    allowed = ([c for c in tiers if c <= max_stream]
+                               or tiers[:1])
+                    base_cap = min(next((c for c in tiers if c >= need),
+                                        tiers[-1]), allowed[-1])
+
+            raw, oks, clamp = dispatch(base_cap)
+            batch_cap = base_cap
+            decided_ids: set = set()
+            retried: Dict[int, Tuple] = {}
+            if oks is not None and (~oks).sum() > max(n_real // 2, 1):
+                # most certificates failed: the whole batch by the sort rank
+                raw, oks, clamp = dispatch(batch_cap, pruned=False)
+
+            def undecided(clamped):
+                """The clamped clips whose margin does not decide them (a
+                clip whose pruned certificate failed is never decided)."""
+                if not self.config.decision_escalation:
+                    return clamped
+                margin_ok = (raw.top_votes[:n_real, 0]
+                             - raw.runner_votes[:n_real]
+                             > raw.n_dropped[:n_real])
+                if oks is not None:
+                    margin_ok &= oks
+                decided_ids.update(int(i) for i in clamped if margin_ok[i])
+                return clamped[~margin_ok[clamped]]
+
+            if tiers[-1] > batch_cap:
+                over = undecided(np.nonzero(
+                    (clamp > batch_cap) | (raw.n_dropped[:n_real] > 0))[0])
+                if big and decide_first and pb.match_capacity is None:
+                    self._decide_record(n_real, len(over))
+                if len(over) > max(n_real // 2, 1):
+                    cand_cap = next(
+                        (c for c in tiers if c >= int(clamp.max())), tiers[-1])
+                    m_bits = min(24,
+                                 max(18, (cand_cap * 16 - 1).bit_length()))
+                    if n_real * ((1 << m_bits) * 4 + 24 * cand_cap) \
+                            <= BATCH_GUARD_BYTES:
+                        batch_cap = cand_cap
+                        raw, oks, clamp = dispatch(batch_cap)
+                        # judged against the old dispatch
+                        decided_ids.clear()
+                        over = undecided(np.nonzero(
+                            (clamp > batch_cap)
+                            | (raw.n_dropped[:n_real] > 0))[0])
+                for i in over:
+                    with span("match.solo_retry"):
+                        retried[int(i)] = self._match_prepared(
+                            queries[i], len(clips[i]), topn=topn,
+                            min_capacity=int(clamp[i]))
+            if oks is not None:
+                # a failed certificate leaves a row that is not exact: alone,
+                # the pruned rank falls back to the sort rank on the device
+                for i in np.nonzero(~oks)[0]:
+                    if int(i) not in retried and int(i) not in peak_over:
+                        with span("match.solo_retry"):
+                            retried[int(i)] = self._match_prepared(
+                                queries[i], len(clips[i]), topn=topn,
+                                min_capacity=max(int(clamp[i]), 1))
+            query_time = time.time() - t0
+
+            out = []
+            for i in range(n_real):
+                if i in peak_over:
+                    out.append(self._handoff(clips[i], topn, "peaks"))
+                    continue
+                t0 = time.time()
+                if i in retried:
+                    one, cap_i = retried[i]
+                else:
+                    one = RawMatch(*(a[i] for a in raw))
+                    # a clip that fit (its clamp signal: the total, or spanned
+                    # its largest span), or is provably decided, reads as
+                    # unaffected by the capacity
+                    cap_i = (max(int(one.total_rows), batch_cap)
+                             if int(clamp[i]) <= batch_cap
+                             or i in decided_ids else batch_cap)
+                res = self._clip_result(one, queries[i].n_pairs, cap_i, 0.0)
+                align_time = time.time() - t0
+                res.update(
+                    fingerprint_time=pb.fingerprint_time / n_real,
+                    query_time=query_time / n_real, align_time=align_time,
+                    total_time=(pb.fingerprint_time + query_time) / n_real
+                    + align_time,
+                    batch_fingerprint_time=pb.fingerprint_time,
+                    batch_query_time=query_time, batch_size=n_real)
+                out.append(res)
+            return out
 
     # ------------------------------------------------------------------ #
     # catalog maintenance and persistence

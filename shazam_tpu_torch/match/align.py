@@ -16,6 +16,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 
 from ..config import DEFAULT_CONFIG, FingerprintConfig
+from ..profiling import spanned
 
 # reference field names (recognizer.py:40-58)
 SONG_ID = "song_id"
@@ -43,6 +44,7 @@ class MatchResult(NamedTuple):
     partial_counts: bool = False
 
 
+@spanned("sia.align")
 def align_results(
     raw,
     queried_hashes: int,

@@ -34,6 +34,7 @@ import torch
 
 from ..index.search import lexi_bounds
 from ..index.store import DeviceIndex
+from ..profiling import spanned
 from .lookup import (RawMatch, _pruned_vote_rank, _is_stacked, check_vote_key,
                      dense_rank, expand_spans_stack, expand_stack, sort_rank)
 
@@ -54,6 +55,7 @@ def query_totals_batched(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid):
     return torch.where(q_valid, ub - lb, 0).sum(1), lb, ub
 
 
+@spanned("match.rank")
 def match_queries_batched(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
                           q_first, *, rank: str, n_songs: int,
                           delta_min: int, delta_range: int,
@@ -128,6 +130,7 @@ def match_queries_batched_spanned(span_arrays, q_hi, q_lo, q_ex, q_t,
     return raw, span_max
 
 
+@spanned("sia.readback")
 def batched_raw_to_host(raw: RawMatch) -> RawMatch:
     """One device->host copy of a batched RawMatch: numpy (Bq, topn)
     columns and (Bq,) scalars."""

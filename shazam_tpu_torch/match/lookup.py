@@ -46,6 +46,7 @@ import torch
 
 from ..index.search import lexi_bounds
 from ..index.store import DeviceIndex
+from ..profiling import spanned
 
 _SENT = 0x7FFFFFFF     # int32 max: sorts after every packed vote key
 _CLIP_SHIFT = 31       # vote keys are < 2^31 (check_vote_key)
@@ -761,6 +762,7 @@ def _pruned_or_sort(sid, delta, first, valid, total, n_dropped, *,
     return RawMatch(*(torch.where(ok, a, b) for a, b in zip(raw_p, raw_s))), ok
 
 
+@spanned("match.rank")
 def match_by_rank(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
                   q_first, *, rank: str, n_songs: int, delta_min: int,
                   delta_range: int, match_capacity: int = 65536,
@@ -968,6 +970,7 @@ def match_query_pruned_spanned(spans, q_hi, q_lo, q_ex, q_t, q_valid,
     return raw, span_max, ok
 
 
+@spanned("sia.readback")
 def raw_to_host(raw: RawMatch, *extra: torch.Tensor):
     """One device->host copy of a RawMatch (and extra scalars).
 

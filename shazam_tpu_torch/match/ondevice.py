@@ -26,12 +26,14 @@ from ..index.search import query_key64
 from ..index.store import DeviceIndex
 from ..ops.fingerprint import (Fingerprints, fingerprint_batch,
                                fingerprint_batch_fused)
+from ..profiling import spanned
 from .lookup import (_expand_any_spans, _is_stacked, _pruned_or_sort,
                      _rank_by_name, check_vote_key, match_by_rank, query_total)
 
 _M32 = 0xFFFFFFFF
 
 
+@spanned("match.dedup")
 def _fingerprint_dedup(fp: Fingerprints, query_capacity: int):
     """One clip's fingerprint lanes -> sorted, deduped query lanes.
 

@@ -15,6 +15,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 
 from ..ops.fingerprint import Fingerprints, union_pairs
+from ..profiling import spanned
 
 
 class QueryPairs(NamedTuple):
@@ -34,6 +35,7 @@ def _bucket(n: int, minimum: int = 1024) -> int:
     return cap
 
 
+@spanned("query.prepare")
 def prepare_query(fps: Sequence[Fingerprints], pad_to: int | None = None) -> QueryPairs:
     """Dedup + pad the fingerprints of one or more channels."""
     hi, lo, ex, t = union_pairs(fps)

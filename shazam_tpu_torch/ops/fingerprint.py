@@ -27,6 +27,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, FingerprintConfig
 from ..device import resolve_device
+from ..profiling import span, spanned
 from .cuda.compact import compact
 from .cuda.peaks import peak_mask
 from .cuda.spectrogram import spectrogram_power
@@ -51,6 +52,7 @@ class Fingerprints(NamedTuple):
         return self.valid.sum(-1)
 
 
+@spanned("fp.hash")
 def _hash(times, freqs, n_peaks, fan_value, min_dt, max_dt) -> Fingerprints:
     hi, lo, ex, t1, valid = generate_hashes(
         times, freqs, n_peaks, fan_value=fan_value, min_dt=min_dt,
@@ -87,11 +89,13 @@ def fingerprint_batch_fused(
     ``n_peaks`` is exact: > ``peak_capacity`` means the peak list was cut
     and the caller retries at a larger capacity.
     """
-    x = samples.to(torch.float32).contiguous()
-    nvf = valid_frames(n_valid_samples.to(x.device), wsize, hop).contiguous()
-    power = spectrogram_power(x, nvf, fs=fs, wsize=wsize, hop=hop)
-    bits = peak_mask(power, amp_min, radius)
-    times, freqs, n_peaks = compact(bits, peak_capacity)
+    with span("fp.peaks"):
+        x = samples.to(torch.float32).contiguous()
+        nvf = valid_frames(n_valid_samples.to(x.device), wsize,
+                           hop).contiguous()
+        power = spectrogram_power(x, nvf, fs=fs, wsize=wsize, hop=hop)
+        bits = peak_mask(power, amp_min, radius)
+        times, freqs, n_peaks = compact(bits, peak_capacity)
     return _hash(times, freqs, n_peaks, fan_value, min_dt, max_dt)
 
 
@@ -115,13 +119,14 @@ def fingerprint_batch(
             "pad-to-bucket fingerprinting requires amp_min > 0: the zeroed "
             "pad columns rely on the strict amp > amp_min gate to stay "
             "peak-free")
-    x = samples.to(torch.float32)
-    nvf = valid_frames(n_valid_samples.to(x.device), wsize, hop)
-    db = db_spectrogram(spectrogram_power_plain(x, nvf, fs=fs, wsize=wsize,
-                                                hop=hop))
-    bits = pack_mask_bits(peak_mask_db(db, amp_min, radius))
-    times, freqs, n_peaks = compact_plain(bits, peak_capacity,
-                                          n_bins=wsize // 2 + 1)
+    with span("fp.peaks"):
+        x = samples.to(torch.float32)
+        nvf = valid_frames(n_valid_samples.to(x.device), wsize, hop)
+        db = db_spectrogram(spectrogram_power_plain(x, nvf, fs=fs,
+                                                    wsize=wsize, hop=hop))
+        bits = pack_mask_bits(peak_mask_db(db, amp_min, radius))
+        times, freqs, n_peaks = compact_plain(bits, peak_capacity,
+                                              n_bins=wsize // 2 + 1)
     return _hash(times, freqs, n_peaks, fan_value, min_dt, max_dt)
 
 

@@ -73,16 +73,20 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from .profiling import record, span
+
 
 class _Pending:
     """One parked request: decoded channels + a completion event.
 
     ``kind`` is "recognize" or "ingest" (``name`` set for the latter);
-    ``t0`` stamps post-decode submit time for the /stats latency track.
+    ``t0`` stamps post-decode submit time for the /stats latency track,
+    ``t0_ns`` the same moment on the spans' clock, for the request's
+    ``serve.queue_wait`` span.
     """
 
     __slots__ = ("channels", "topn", "event", "result", "error", "kind",
-                 "name", "extra", "t0")
+                 "name", "extra", "t0", "t0_ns")
 
     def __init__(self, channels: List[np.ndarray], topn: Optional[int],
                  kind: str = "recognize", name: Optional[str] = None,
@@ -96,6 +100,7 @@ class _Pending:
         self.result = None
         self.error: Optional[str] = None
         self.t0 = time.monotonic()
+        self.t0_ns = time.perf_counter_ns()
 
 
 class MicroBatcher:
@@ -338,7 +343,8 @@ class MicroBatcher:
                         self.stats["prepare_s"] = (
                             self.stats.get("prepare_s", 0.0)
                             + (time.monotonic() - t_p))
-                    self._pipe.put((pb, mono))  # blocks at depth 1
+                    with span("serve.pipe_put", clips=len(mono)):
+                        self._pipe.put((pb, mono))  # blocks at depth 1
                 except Exception as e:  # noqa: BLE001 — per request
                     with self._slock:
                         self.stats["errors"] += len(mono)
@@ -455,6 +461,9 @@ class MicroBatcher:
             if first is None:
                 continue
             batch = self._collect(first)
+            collected = time.perf_counter_ns()
+            for p in batch:
+                record("serve.queue_wait", p.t0_ns, collected)
             try:
                 self._answer(batch)
             except Exception as e:  # noqa: BLE001 — the batcher thread

@@ -1,3 +1,3 @@
-from .profiling import StageTimer, device_trace
+from ..profiling import device_trace
 
-__all__ = ["StageTimer", "device_trace"]
+__all__ = ["device_trace"]

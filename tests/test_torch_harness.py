@@ -252,23 +252,8 @@ def test_sweep_rate_guards(engines, corpus, tmp_path):
                 add_noise=True, out_dir=str(tmp_path / "c")))
 
 
-def test_stage_timer():
-    from shazam_tpu_torch.utils.profiling import StageTimer
-
-    t = StageTimer()
-    with t.stage("fingerprint_times"):
-        pass
-    with t.stage("query_time"):
-        pass
-    with t.stage("query_time"):
-        pass
-    row = t.as_row()
-    assert set(row) == {"fingerprint_times", "query_time", "total_time"}
-    assert row["total_time"] == pytest.approx(t.total) and t.total >= 0
-
-
 def test_device_trace(tmp_path):
-    from shazam_tpu_torch.utils.profiling import device_trace
+    from shazam_tpu_torch.profiling import device_trace
 
     with device_trace(None):
         torch.ones(8).sum()

@@ -9,7 +9,8 @@ Phases (each raises on failure; any failure exits non-zero):
 
 1. build: compile the hand-written kernels ``shazam_tpu_torch/csrc/*.cu``
    with nvcc (sm_90a) and load them;
-2. kernels: run K1 (spectrogram), K2 (peak mask) and K3 (compaction) on
+2. kernels: run K1 (spectrogram), K2 (peak mask), K3 (compaction) and
+   the pairing + SHA-1 kernel (``csrc/sha1.cu``, on K3's peak lists) on
    the card at the shapes phases 3-7 give them (``_kernel_inputs``,
    ``check_stream_kernels``) --
    ingest (8, 1,572,864) samples, 767 frames, peak capacity 16384; phase
@@ -24,25 +25,28 @@ Phases (each raises on failure; any failure exits non-zero):
    streams: K1 on one device ring quantum (1, 34,816), 16 frames, and on
    the host engine's feeds of 4, 1 and 6 frames, K2 on the (1, 36,
    2,049), (1, 20, 2,049) and (1, 24, 2,049) slabs, K3 on a (1, 321, 65)
-   window at capacity 8,192 -- and hold each against its plain PyTorch
+   window at capacity 8,192 and the SHA-1 kernel on that window's 1-D
+   list -- and hold each against its plain PyTorch
    twin on the same inputs: K1 in dB, max |diff| < 1e-3 dB with exact
    zeros equal (both compute in float64; the distance of an f32 FFT from
    the twin is printed beside it, as the gap the bound has to tell
-   apart); K2 and K3 bit-exact. Phase 6 also holds, on its own inputs,
-   the first launch at every shape it makes (``ShapeAudit``).
+   apart); K2, K3 and SHA-1 (all five outputs, every lane) bit-exact.
+   Phase 6 also holds, on its own inputs, the first launch at every shape
+   it makes (``ShapeAudit``).
    Kernel and plain times (``ms``, ``plain_ms``) are CUDA-event medians
    over back-to-back calls, host launch time included; ``device_ms`` is the
    kernel's own duration in a ``torch.profiler`` trace, the median of a
    few calls; ``bound_ms`` is the least time the card could take, the
    larger of the bytes over 3.35 TB/s and the operations over the peak
    rate of their type (K1: float64, 34 TFLOP/s; K2: float32 compares, 67
-   TFLOP/s), counted from this run's inputs; ``library_ms`` is one
-   PyTorch call the port never makes: for K1 ``torch.fft.rfft`` in
-   float64 over frames windowed beforehand, the cuFFT core of K1's work;
+   TFLOP/s; SHA-1: 661 integer-pipe instructions a lane, 16.7 TOP/s),
+   counted from this run's inputs; ``library_ms`` is one PyTorch call
+   the port never makes: for K1 ``torch.fft.rfft`` in float64 over
+   frames windowed beforehand, the cuFFT core of K1's work;
    for K3 ``torch.nonzero`` of the same mask unpacked to bool (B, T,
    2049) beforehand, which reads 32 times K3's input bytes and syncs the
-   host, so its ``library_device_ms`` is the number to compare. K2 has no
-   such call;
+   host, so its ``library_device_ms`` is the number to compare. K2 and
+   SHA-1 have no such call;
 3. end to end: ``SIA(device="cuda")`` ingests the catalog (2,035 seeded
    30 s synthetic songs, synthesized by a process pool, in chunks of 256)
    and ``recognize_clip`` answers seeded 5 s clips cut at frame-aligned
@@ -351,6 +355,14 @@ SWEEP_REFERENCE_NOTE = {"awgn_0db": "city traffic, not comparable"}
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
 F64_FLOP_S = 34e12      # float64 outside the tensor cores
 F32_FLOP_S = 67e12      # float32 outside the tensor cores
+INT32_OP_S = 16.7e12    # 132 SMs x 64 int32 lanes x 1.98 GHz
+# csrc/sha1.cu's integer-pipe instructions a lane, counted in its SASS
+# (sm_90a: LOP3 209, SHF 187, LEA 113, IADD3 81, ISETP 42, SEL 26, PRMT 2,
+# VIMNMX 1; its 197 IMAD and 36 VIADD issue to the FMA pipe beside them).
+# The algorithm's ~1,300 two-input operations fold into these three-input
+# instructions, so 1,300 at the int32 rate would put the bound above the
+# kernel's own time
+SHA1_OPS_PER_LANE = 661
 DEVICE_CALLS = 5        # profiled calls per device_ms median
 KERNELS = (
     ("spectrogram_power", "shazam_tpu_torch/csrc/spectrogram.cu",
@@ -359,6 +371,8 @@ KERNELS = (
      "shazam_tpu/ops/pallas/peaks.py:107"),
     ("compact", "shazam_tpu_torch/csrc/compact.cu",
      "shazam_tpu/ops/pallas/compact.py:136"),
+    ("pair_sha1", "shazam_tpu_torch/csrc/sha1.cu",
+     "none: shazam_tpu/ops/hashes.py + sha1.py are plain XLA"),
 )
 # the entry point of the one-block-per-song K3 (commit 11ffc6f, no
 # scratch): bits, batch, n_frames, capacity, times, freqs, n_peaks (+ the
@@ -452,6 +466,7 @@ def kernel_bounds(n: int, nvf: np.ndarray, n_frames: int, cap: int) -> dict:
     # (E/O, twiddle product, two |X|^2 and two scales) over 1025 pairs
     k1_ops = int(live.sum()) * (4096 + 5 * 2048 * 11 + 26 * 1025)
     mask_bytes = 4 * bsz * n_frames * 65
+    lanes = bsz * 4 * cap   # fan_value 5: four targets an anchor
     return {
         # samples in, power out; float64 ops
         "spectrogram_power": _bound(k1_in + 4 * cells, k1_ops, F64_FLOP_S),
@@ -460,15 +475,18 @@ def kernel_bounds(n: int, nvf: np.ndarray, n_frames: int, cap: int) -> dict:
         "peak_mask": _bound(4 * cells + mask_bytes, 43 * cells, F32_FLOP_S),
         # mask words in; times, freqs (B, cap) and n_peaks out
         "compact": _bound(mask_bytes + 8 * bsz * cap + 4 * bsz, 0, F32_FLOP_S),
+        # times, freqs and n_peaks in; hi, lo, ex, t1 (int64) and valid out
+        "pair_sha1": _bound(8 * bsz * cap + 4 * bsz + 33 * lanes,
+                            SHA1_OPS_PER_LANE * lanes, INT32_OP_S),
     }
 
 
 def _modules() -> dict:
     """Each kernel's wrapper module, by kernel name."""
-    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
+    from shazam_tpu_torch.ops.cuda import compact, peaks, sha1, spectrogram
 
     return {"spectrogram_power": spectrogram, "peak_mask": peaks,
-            "compact": compact}
+            "compact": compact, "pair_sha1": sha1}
 
 
 def _baselines(paths: dict) -> dict:
@@ -541,6 +559,14 @@ def _launch_arrays(name: str, a: tuple):
         bsz, t = a[1], a[2]
         return ((bsz, t), [(a[0], (bsz, t, 2049), "<f4")],
                 [(a[4], (bsz, t, 65), "<i4")], {"threshold": a[3]})
+    if name == "pair_sha1":  # times, freqs, n, rows, cap, fan, dts, 5 outs
+        rows, cap, fan = a[3], a[4], a[5]
+        lanes = (rows, (fan - 1) * cap)
+        return ((rows, cap, fan, a[6], a[7]),
+                [(a[0], (rows, cap), "<i4"), (a[1], (rows, cap), "<i4"),
+                 (a[2], (rows,), "<i4")],
+                [(p, lanes, "<i8") for p in a[8:12]] + [(a[12], lanes, "|b1")],
+                {"fan_value": fan, "min_dt": a[6], "max_dt": a[7]})
     bsz, t, cap = a[1], a[2], a[3]    # bits, B, T, cap, times, freqs, n
     return ((bsz, t, cap), [(a[0], (bsz, t, 65), "<i4")],
             [(a[4], (bsz, cap), "<i4"), (a[5], (bsz, cap), "<i4"),
@@ -596,6 +622,7 @@ class ShapeAudit:
         Returns {kernel name: [[shape, max err], ...]} (K1's in dB)."""
         import torch
 
+        from shazam_tpu_torch.ops.hashes import generate_hashes_plain
         from shazam_tpu_torch.ops.peaks import (compact_plain,
                                                 peak_mask_plain,
                                                 power_threshold)
@@ -621,6 +648,11 @@ class ShapeAudit:
                 if scalars["threshold"] != power_threshold(cfg.amp_min):
                     raise AssertionError(f"K2 at {key}: gate differs")
                 err = int((got != peak_mask_plain(ins[0], cfg.amp_min)).sum())
+                ok = err == 0
+            elif name == "pair_sha1":
+                want = generate_hashes_plain(*ins, **scalars)
+                err = sum(int((a != b).sum())
+                          for a, b in zip((got, *more), want))
                 ok = err == 0
             else:
                 want = compact_plain(ins[0], key[2])
@@ -717,7 +749,9 @@ def check_stream_kernels(device, out: dict) -> None:
 
     from shazam_tpu_torch.ops.cuda import compact as k3
     from shazam_tpu_torch.ops.cuda import peaks as k2
+    from shazam_tpu_torch.ops.cuda import sha1 as k4
     from shazam_tpu_torch.ops.cuda import spectrogram as k1
+    from shazam_tpu_torch.ops.hashes import generate_hashes_plain
     from shazam_tpu_torch.ops.peaks import (compact_plain, peak_mask_plain,
                                             unpack_mask_bits)
     from shazam_tpu_torch.ops.spectrogram import (db_spectrogram, hann_window,
@@ -776,6 +810,18 @@ def check_stream_kernels(device, out: dict) -> None:
         lambda: k3.compact(bits, cap), lambda: compact_plain(bits, cap), bad,
         lambda: torch.nonzero(mask),
         kernel_bounds(0, np.array([n_win]), n_win, cap)["compact"])
+    # the device stream's hashes: one 1-D list and a 0-dim count
+    one = (got[0][0], got[1][0], got[2][0])
+    bad = sum(int((a != b).sum()) for a, b in zip(
+        k4.pair_hashes(*one), generate_hashes_plain(*one)))
+    if bad:
+        raise AssertionError(f"pair_sha1 stream_window: {bad} lane outputs "
+                             "differ")
+    out["pair_sha1"]["stream_window"] = _measure(
+        "pair_sha1", f"stream_window ({cap},)",
+        lambda: k4.pair_hashes(*one), lambda: generate_hashes_plain(*one),
+        bad, None,
+        kernel_bounds(0, np.array([n_win]), n_win, cap)["pair_sha1"])
 
 
 def check_kernels(device, baselines=None) -> dict:
@@ -788,7 +834,9 @@ def check_kernels(device, baselines=None) -> dict:
     from shazam_tpu_torch.api import _bucket_len, _pad_rows
     from shazam_tpu_torch.ops.cuda import compact as k3
     from shazam_tpu_torch.ops.cuda import peaks as k2
+    from shazam_tpu_torch.ops.cuda import sha1 as k4
     from shazam_tpu_torch.ops.cuda import spectrogram as k1
+    from shazam_tpu_torch.ops.hashes import generate_hashes_plain
     from shazam_tpu_torch.ops.peaks import (compact_plain, peak_mask_plain,
                                             unpack_mask_bits)
     from shazam_tpu_torch.ops.spectrogram import (db_spectrogram, hann_window,
@@ -852,6 +900,16 @@ def check_kernels(device, baselines=None) -> dict:
         if int(got[2].max()) > cap:
             raise AssertionError(f"K3 {label}: peak capacity {cap} overflowed")
 
+        # pairing + SHA-1 on K3's lists: all five outputs, every lane
+        hashes = k4.pair_hashes(*got)
+        hashes_p = generate_hashes_plain(*got)
+        torch.cuda.synchronize()
+        sha_e = sum(int((a != b).sum()) for a, b in zip(hashes, hashes_p))
+        if sha_e:
+            raise AssertionError(f"pair_sha1 {label}: {sha_e} lane outputs "
+                                 "differ from the plain twin")
+        del hashes, hashes_p
+
         # the library yardsticks (the port never calls them): cuFFT's
         # float64 rfft of every frame, windowed beforehand; torch.nonzero
         # of the mask, unpacked to bool beforehand
@@ -871,6 +929,9 @@ def check_kernels(device, baselines=None) -> dict:
             ("compact", lambda: k3.compact(bits, cap),
              lambda: compact_plain(bits, cap), k3_e,
              lambda: torch.nonzero(mask)),
+            # no PyTorch call computes SHA-1: no library yardstick
+            ("pair_sha1", lambda: k4.pair_hashes(*got),
+             lambda: generate_hashes_plain(*got), sha_e, None),
         )
         for name, kfn, pfn, e, lib_fn in timings:
             out[name][label] = _measure(name, f"{label} {tuple(batch.shape)}",

@@ -27,7 +27,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, FingerprintConfig
 from ..device import resolve_device
-from ..profiling import span, spanned
+from ..profiling import span
 from .cuda.compact import compact
 from .cuda.peaks import peak_mask
 from .cuda.spectrogram import spectrogram_power
@@ -52,11 +52,13 @@ class Fingerprints(NamedTuple):
         return self.valid.sum(-1)
 
 
-@spanned("fp.hash")
 def _hash(times, freqs, n_peaks, fan_value, min_dt, max_dt) -> Fingerprints:
-    hi, lo, ex, t1, valid = generate_hashes(
-        times, freqs, n_peaks, fan_value=fan_value, min_dt=min_dt,
-        max_dt=max_dt)
+    # impl: which of generate_hashes' two paths ran; lanes: how many it hashed
+    impl = "torch" if times.device.type == "cpu" else "cuda"
+    with span("fp.hash", impl=impl, lanes=(fan_value - 1) * times.numel()):
+        hi, lo, ex, t1, valid = generate_hashes(
+            times, freqs, n_peaks, fan_value=fan_value, min_dt=min_dt,
+            max_dt=max_dt)
     return Fingerprints(hi, lo, ex, t1, valid, n_peaks)
 
 

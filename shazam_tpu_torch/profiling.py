@@ -24,7 +24,9 @@ The spans of the port, from a request down:
 - ``sia.recognize_clip``: ``SIA.recognize_clip``, the root of a listener's
   clip.
 - ``fp.peaks``: K1-K3, or their plain twins, from samples to peak lists.
-- ``fp.hash``: SHA-1 pairing (``ops/hashes`` + ``ops/sha1``).
+- ``fp.hash``: SHA-1 pairing (``ops/hashes``: ``csrc/sha1.cu`` on the card,
+  the plain twin on the CPU); ``impl`` is ``cuda`` or ``torch``, ``lanes``
+  the lanes hashed.
 - ``match.dedup``: the on-device query dedup.
 - ``match.rank``: one match dispatch: search, expansion and vote rank.
 - ``sia.readback``: the host blocked on the device while it copies back.

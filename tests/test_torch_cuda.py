@@ -225,8 +225,8 @@ def test_compact_repeat_calls_agree(cuda):
 
 def test_custom_config_sia_on_cuda(cuda):
     """A config outside the kernels' contract (22,050 Hz, window 2048,
-    radius 5) runs the plain pipeline on the card, launches no kernel,
-    and answers as the CPU does."""
+    radius 5) runs the plain pipeline on the card, launches none of
+    K1-K3, and answers as the CPU does."""
     from shazam_tpu_torch.api import SIA
     from shazam_tpu_torch.config import FingerprintConfig
     from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
@@ -260,6 +260,160 @@ def test_fused_fingerprint_on_cuda_equals_cpu(cuda):
     cpu = fingerprint_batch_fused(x.cpu(), nv.cpu(), peak_capacity=2048)
     for a, b in zip(gpu, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+def _peak_lists(rng, rows, cap, max_t=6000):
+    """Sorted (rows, cap) peak times and freqs, int32, as K3 gives them."""
+    times = np.sort(rng.integers(0, max_t, (rows, cap)), axis=-1)
+    freqs = rng.integers(0, 2049, (rows, cap))
+    return times.astype(np.int32), freqs.astype(np.int32)
+
+
+def _pair_vs_twin(times, freqs, n_peaks, **kw):
+    """pair_hashes against generate_hashes_plain on the same CUDA tensors,
+    all five outputs bit for bit; returns the kernel's."""
+    from shazam_tpu_torch.ops.cuda import sha1
+    from shazam_tpu_torch.ops.hashes import generate_hashes_plain
+
+    before = sha1.KERNEL.launches
+    got = sha1.pair_hashes(times, freqs, n_peaks, **kw)
+    want = generate_hashes_plain(times, freqs, n_peaks, **kw)
+    torch.cuda.synchronize()
+    assert sha1.KERNEL.launches == before + (got[0].numel() > 0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("rows,cap", [(1, 8192), (16, 16384)])
+def test_pair_sha1_matches_twin(cuda, rows, cap):
+    """The kernel at the clip shape and the ingest shape, counts from
+    empty to past the capacity, every lane (masked ones included)."""
+    rng = np.random.default_rng(rows * 7 + cap)
+    times, freqs = _peak_lists(rng, rows, cap)
+    n = rng.integers(0, cap + 100, rows).astype(np.int32)
+    n[0] = cap // 2
+    got = _pair_vs_twin(torch.from_numpy(times).to(cuda),
+                        torch.from_numpy(freqs).to(cuda),
+                        torch.from_numpy(n).to(cuda))
+    assert int(got[4].sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["n0", "n1", "n_cap", "n_over", "cap4_fan5",
+                                  "cap2_fan5", "one_dim", "int64",
+                                  "fan7_dt3_9999", "fan2_dt5_5"])
+def test_pair_sha1_edges_match_twin(cuda, case):
+    rng = np.random.default_rng(len(case))
+    cap, kw = 256, {}
+    n = {"n0": 0, "n1": 1, "n_cap": cap, "n_over": cap + 9}.get(case, 200)
+    if case.startswith("cap"):
+        cap = int(case[3])
+        n = cap
+        kw = {"fan_value": 5}
+    elif case == "fan7_dt3_9999":
+        kw = {"fan_value": 7, "min_dt": 3, "max_dt": 9999}
+    elif case == "fan2_dt5_5":
+        kw = {"fan_value": 2, "min_dt": 5, "max_dt": 5}
+    times, freqs = (torch.from_numpy(a).to(cuda)
+                    for a in _peak_lists(rng, 2, cap, max_t=400))
+    n_peaks = torch.tensor([n, max(n - 1, 0)], dtype=torch.int32, device=cuda)
+    if case == "one_dim":
+        times, freqs, n_peaks = times[1], freqs[1], n_peaks[1]
+    elif case == "int64":
+        times, freqs, n_peaks = times.long(), freqs.long(), n_peaks.long()
+    got = _pair_vs_twin(times, freqs, n_peaks, **kw)
+    assert got[0].shape[-1] == (kw.get("fan_value", 5) - 1) * cap
+
+
+def test_pair_sha1_digit_grid_matches_hashlib(cuda):
+    """Every (f1, f2, dt) of the digit-count boundaries, one pair a row
+    (anchor at t = 0 and f1, target at t = dt and f2), against hashlib's
+    first 20 hex chars."""
+    import hashlib
+    import itertools
+
+    from shazam_tpu_torch.ops.sha1 import keys_to_hex
+
+    vals = (0, 9, 10, 99, 100, 999, 1000, 2048, 9999)
+    trip = list(itertools.product(vals, repeat=3))
+    f1, f2, dt = (np.array(v) for v in zip(*trip))
+    times = np.stack([np.zeros_like(dt), dt], 1).astype(np.int32)
+    freqs = np.stack([f1, f2], 1).astype(np.int32)
+    n = np.full(len(trip), 2, np.int32)
+    hi, lo, ex, t1, valid = _pair_vs_twin(
+        *(torch.from_numpy(a).to(cuda) for a in (times, freqs, n)),
+        fan_value=2, min_dt=0, max_dt=9999)
+    assert bool(valid[:, 0].all()) and not bool(valid[:, 1].any())
+    got = keys_to_hex(*(a[:, 0].cpu().numpy() for a in (hi, lo, ex)))
+    assert got == [hashlib.sha1(f"{a}|{b}|{c}".encode()).hexdigest()[:20]
+                   for a, b, c in trip]
+
+
+def test_pair_sha1_one_launch_a_call(cuda):
+    from shazam_tpu_torch.ops.cuda import sha1
+    from shazam_tpu_torch.ops.hashes import generate_hashes
+
+    times, freqs = (torch.from_numpy(a).to(cuda) for a in
+                    _peak_lists(np.random.default_rng(3), 4, 1024))
+    n = torch.full((4,), 1000, dtype=torch.int32, device=cuda)
+    for k in range(1, 4):
+        before = sha1.KERNEL.launches
+        generate_hashes(times, freqs, n)
+        assert sha1.KERNEL.launches == before + 1, k
+
+
+def test_fused_fingerprint_hashes_equal_the_twins(cuda):
+    """fingerprint_batch_fused on the card equals K1-K3 followed by the
+    plain twin's hashes."""
+    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
+    from shazam_tpu_torch.ops.fingerprint import fingerprint_batch_fused
+    from shazam_tpu_torch.ops.hashes import generate_hashes_plain
+    from shazam_tpu_torch.ops.spectrogram import valid_frames
+
+    x, nv = _batch(cuda)
+    fp = fingerprint_batch_fused(x, nv, peak_capacity=2048)
+    bits = peaks.peak_mask(spectrogram.spectrogram_power(
+        x, valid_frames(nv, 4096, 2048).contiguous()), 10.0)
+    times, freqs, n_peaks = compact.compact(bits, 2048)
+    want = generate_hashes_plain(times, freqs, n_peaks)
+    for a, b in zip(fp, (*want, n_peaks)):
+        assert torch.equal(a, b)
+    assert int(fp.n_hashes.min()) > 0
+
+
+def test_recognize_clip_hashes_through_the_kernel(cuda):
+    """Every ``fp.hash`` span of a clip on the card, handed off or not,
+    names the kernel, and each is one launch of it: a CUDA tensor never
+    runs the torch chain."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from shazam_tpu_torch import profiling
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.config import DEFAULT_CONFIG
+    from shazam_tpu_torch.ops.cuda import sha1
+
+    songs = [(f"s{i}", synth_song(i, 8.0, seed=31)) for i in range(3)]
+    clip = np.asarray(songs[2][1])[44100: 5 * 44100]
+    for cfg in (DEFAULT_CONFIG, dataclasses.replace(
+            DEFAULT_CONFIG, match_capacity_fast=64,
+            decision_escalation=False)):    # the second hands off
+        sia = SIA(config=cfg)
+        sia.ingest_arrays(songs)
+        want = sia.recognize_clip(clip)
+        mark = max((r.index for r in profiling.span_records()), default=-1)
+        before = sha1.KERNEL.launches
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = sia.recognize_clip(clip)
+        torch.cuda.synchronize()
+        assert got["results"] == want["results"]
+        hashes = [r for r in profiling.span_records()
+                  if r.index > mark and r.name == "fp.hash"]
+        assert hashes and all(r.attrs["impl"] == "cuda" for r in hashes)
+        assert sha1.KERNEL.launches - before == len(hashes)
+        assert got["results"][0]["song_name"] == "s2"
 
 
 def test_sia_on_cuda_matches_cpu(cuda):

@@ -227,7 +227,8 @@ def test_shape_audit_holds_first_launches_to_their_twins(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke
     from shazam_tpu_torch.config import FingerprintConfig
-    from shazam_tpu_torch.ops.cuda import compact, peaks, spectrogram
+    from shazam_tpu_torch.ops.cuda import compact, peaks, sha1, spectrogram
+    from shazam_tpu_torch.ops.hashes import generate_hashes_plain
     from shazam_tpu_torch.ops.peaks import (compact_plain, peak_mask_plain,
                                             power_threshold)
     from shazam_tpu_torch.ops.spectrogram import (psd_scales,
@@ -249,6 +250,7 @@ def test_shape_audit_holds_first_launches_to_their_twins(monkeypatch):
     power = spectrogram_power_plain(x, nvf)
     bits = peak_mask_plain(power, cfg.amp_min)
     times, freqs, n_peaks = compact_plain(bits, 64)
+    hashes = generate_hashes_plain(times, freqs, n_peaks, 5, 0, 200)
     edge, mid = psd_scales(4096, cfg.sample_rate)
     launches = (
         (spectrogram.KERNEL, "spectrogram_power",
@@ -259,6 +261,9 @@ def test_shape_audit_holds_first_launches_to_their_twins(monkeypatch):
         (compact.KERNEL, "compact",
          (ptr(bits), 2, 10, 64, ptr(times), ptr(freqs), ptr(n_peaks), 0, 0,
           0)),
+        (sha1.KERNEL, "pair_sha1",
+         (ptr(times), ptr(freqs), ptr(n_peaks), 2, 64, 5, 0, 200,
+          *map(ptr, hashes))),
     )
     audit = chip_smoke.ShapeAudit(cfg)
     for kernel, name, args in launches * 2:   # a shape is copied once
@@ -267,7 +272,12 @@ def test_shape_audit_holds_first_launches_to_their_twins(monkeypatch):
         audit._launch(name, stub(), *args)
     assert audit.check() == {"spectrogram_power": [[[2, x.shape[1]], 0.0]],
                              "peak_mask": [[[2, 10], 0]],
-                             "compact": [[[2, 10, 64], 0]]}
+                             "compact": [[[2, 10, 64], 0]],
+                             "pair_sha1": [[[2, 64, 5, 0, 200], 0]]}
+    audit.first["pair_sha1", (2, 64, 5, 0, 200)][1][3][1, 7] += 1
+    with pytest.raises(AssertionError, match="pair_sha1 at"):
+        audit.check()
+    audit.first["pair_sha1", (2, 64, 5, 0, 200)][1][3][1, 7] -= 1
     audit.first["compact", (2, 10, 64)][1][0][0, 0] += 1
     with pytest.raises(AssertionError, match="compact at"):
         audit.check()

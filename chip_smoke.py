@@ -63,6 +63,17 @@ Phases (each raises on failure; any failure exits non-zero):
    match are timed, the two variants must agree field for field and batch
    for batch, and at least one clip must exit early. K1-K3 must launch in
    this early-exit run;
+3b. stereo, on phase 3's SIA: the first 8 of phase 3's 5 s clips as (2,
+   N) stereo clips through ``recognize_clip``'s single pass, every other
+   one dual-mono (R = L) and the rest with R a quieter take under seeded
+   noise: each must be right as in phase 3 and equal to
+   ``recognize_samples([L, R])`` by phase 5's rule, a dual-mono clip
+   equal to its mono clip. It runs under ``ShapeAudit``, which must have
+   held K1-K3 and the SHA-1 kernel at two rows (B = 2, the stereo
+   pass's shape) against their twins; the clips answered in one pass and
+   those handed off (with their reasons), the kernels' launches and one
+   clip's host launch calls, stereo and mono
+   (``profiling.host_launches``), are printed;
 4. big catalog: the same SIA ingests songs 2,035-2,713 (the reference's
    2,714-song catalog), so that n_songs x delta_range passes
    ``sparse_vote_threshold`` and recognition takes the sparse ranks.
@@ -312,6 +323,8 @@ PROBE_AT = (1 << 26, 1 << 27, 1 << 28, REFERENCE_ROWS)   # rows after the
 PROBE_CHUNK = 1 << 24                                     # timed run
 # phase 3's early exit: the apriori batch (the JAX package's default)
 APRIORI_BATCH = 1024
+# phase 3b: stereo clips made of phase 3's 5 s clips
+STEREO_CLIPS = 8
 # phase 8: a spanned SIA over phase 7's catalog, one device batch of new
 # songs, its span-wise file loaded back three ways, 8 clips
 SPAN_ROWS = 1 << 22
@@ -1172,6 +1185,62 @@ def early_exit(sia, clips) -> dict:
         raise AssertionError("no clip exited early")
     return {"clips": len(clips), "batches_used": used, "batches": total,
             "early_exits": exits, "p50_ms": p50}
+
+
+def stereo(sia, clips, seed: int) -> dict:
+    """Phase 3b on phase 3's SIA: the first ``STEREO_CLIPS`` of phase 3's
+    clips as (2, N) stereo clips through ``recognize_clip`` (the module's
+    docstring). Returns the handoffs, the host launch calls and the p50s."""
+    from shazam_tpu_torch.profiling import host_launches
+
+    rng = np.random.default_rng(seed + 3)
+    handed = {}
+    inner = sia._handoff
+
+    def named(samples, topn, reason):
+        handed[reason] = handed.get(reason, 0) + 1
+        return inner(samples, topn, reason)
+
+    lat, one_pass, dual = [], 0, None
+    sia._handoff = named
+    try:
+        for k, (sid, frame, left) in enumerate(clips[:STEREO_CLIPS]):
+            right = left if k % 2 == 0 else np.clip(
+                0.7 * left + rng.normal(0, 1500, len(left)), -32768,
+                32767).astype(np.int16)
+            clip = np.stack([left, right])
+            before = sum(handed.values())
+            t = time.perf_counter()
+            got = sia.recognize_clip(clip)
+            lat.append(1e3 * (time.perf_counter() - t))
+            one_pass += sum(handed.values()) == before
+            want = sia.recognize_samples([left, right])
+            if (not _right(got, sid, frame * HOP / FS)
+                    or not _same_answer(_answer(want), _answer(got))):
+                raise AssertionError(f"stereo clip {k} of {sid}: "
+                                     f"{_answer(got)}, recognize_samples "
+                                     f"{_answer(want)}")
+            if k % 2 == 0:
+                mono = sia.recognize_clip(left)
+                if not _same_answer(_answer(mono), _answer(got)):
+                    raise AssertionError(f"dual-mono clip {k} of {sid}: "
+                                         f"{_answer(got)}, its mono clip "
+                                         f"{_answer(mono)}")
+                dual = clip
+    finally:
+        del sia._handoff
+    launches = {"stereo": None, "mono": None}   # read on the card only
+    if sia.device.type == "cuda":
+        launches = {
+            "stereo": host_launches(lambda: sia.recognize_clip(dual))[0],
+            "mono": host_launches(lambda: sia.recognize_clip(dual[0]))[0]}
+    p50 = float(np.median(lat))
+    print(f"stereo: {len(lat)} clips of 2 x {CLIP_S} s right and equal to "
+          f"recognize_samples([L, R]), {one_pass} in one pass, handed off "
+          f"{handed}; p50 {p50:.3f} ms; host launch calls a clip: stereo "
+          f"{launches['stereo']}, mono {launches['mono']}", flush=True)
+    return {"clips": len(lat), "one_pass": one_pass, "handed_off": handed,
+            "p50_ms": p50, "host_launches": launches}
 
 
 def _answer(res):
@@ -3404,6 +3473,23 @@ def main(argv=None) -> int:
         device, args.songs, args.clips, args.seed, workers))
     early, launches_early = launched("early exit", lambda: early_exit(
         sia, e2e_clips))
+
+    def stereo_phase():
+        with ShapeAudit(sia.config) as audit:
+            out = stereo(sia, e2e_clips, args.seed)
+        out["twin_audit"] = audit.check()
+        two_rows = [name for name, v in out["twin_audit"].items()
+                    if not any(k[0] == 2 for k, _ in v)]
+        if two_rows:
+            raise AssertionError(f"no two-row launch of {two_rows} audited")
+        print("phase 3b's first launch at each shape equal to its plain twin "
+              "(K1 in dB): " + "; ".join(
+                  f"{name} at {[k for k, _ in v]}, max err "
+                  f"{max((e for _, e in v), default=0)}"
+                  for name, v in out["twin_audit"].items()), flush=True)
+        return out
+
+    stereo_out, launches_stereo = launched("stereo", stereo_phase)
     (big_clips, big), launches_big = launched("big catalog", lambda: big_catalog(
         sia, args.songs, args.big_songs, args.big_clips, CHECKED_CLIPS,
         args.seed, workers))
@@ -3492,6 +3578,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "launches_early_exit": launches_early[name],
+            "launches_stereo": launches_stereo[name],
             "launches_big_catalog": launches_big[name],
             "launches_files_batches": launches_files[name],
             "launches_serve_stream": launches_serve[name],
@@ -3508,7 +3595,7 @@ def main(argv=None) -> int:
         })
     print(f"whole run {time.perf_counter() - t0:.3f} s", flush=True)
     print(json.dumps({"kernels": report, "end_to_end": e2e,
-                      "early_exit": early,
+                      "early_exit": early, "stereo": stereo_out,
                       "big_catalog": big, "files_and_batches": files,
                       "serve_and_stream": served,
                       "device_resident": resident_out, "spans": spans_out,

@@ -99,9 +99,11 @@ from .match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
 from .ops.fingerprint import (Fingerprints, fingerprint_batch,
                               fingerprint_batch_fused, fused_takes,
                               union_pairs)
-from .profiling import span, spanned
+from .profiling import annotate, span, spanned
 
 MAX_PEAK_CAPACITY = 1 << 22
+# channels recognize_clip fingerprints in its one pass (stereo)
+MAX_CLIP_CHANNELS = 2
 QUERY_COLUMNS = ("hi", "lo", "ex", "t", "valid", "first")
 # the JAX package's 4 GB batch guards, kept so that both packages make the
 # same dispatch decisions: the bounds-first base tier's expansion stream
@@ -805,11 +807,15 @@ class SIA:
         return max(self._live_n_songs(), 1)
 
     def _to_device(self, samples: np.ndarray):
-        """(1, bucketed) f32 clip and its (1,) valid length on the device."""
-        padded = np.zeros(_bucket_len(len(samples)), np.float32)
-        padded[: len(samples)] = samples
-        return (torch.from_numpy(padded).to(self.device)[None, :],
-                torch.tensor([len(samples)], dtype=torch.int32,
+        """A (N,) clip, or a (C, N) clip of C channel rows, as one
+        (C, bucketed) f32 tensor (C = 1 for mono) and its (C,) valid
+        lengths on the device."""
+        rows = np.atleast_2d(samples)
+        n = rows.shape[1]
+        padded = np.zeros((rows.shape[0], _bucket_len(n)), np.float32)
+        padded[:, :n] = rows
+        return (torch.from_numpy(padded).to(self.device),
+                torch.tensor([n] * rows.shape[0], dtype=torch.int32,
                              device=self.device))
 
     def _fingerprint_channel(self, samples: np.ndarray) -> Fingerprints:
@@ -1194,38 +1200,57 @@ class SIA:
             if u * 2 > a:
                 self._decide_boost += 1
 
-    @spanned("sia.recognize_clip")
     def recognize_clip(self, samples: np.ndarray,
                        topn: Optional[int] = None) -> Dict:
-        """Lowest-latency recognition of one mono clip.
+        """Lowest-latency recognition of one clip: mono (N,), or (C, N)
+        with C <= 2 channels, a stereo recording.
 
-        Fingerprint, on-device dedup, match and rank run on the device
-        with one read-back at the end; results equal
-        ``recognize_samples([samples])``. A clip that overflows the peak
-        capacity or the query lanes, or whose match clamped without being
-        provably decided, goes to ``recognize_samples``. On a big index
-        (sparse ranks and ``bounds_probe_min_rows``) decided-first runs
-        the same single pass at the decide tier; bounds-first goes to
+        Fingerprint (the C rows in one call), on-device dedup of the
+        union of their (hash, offset) pairs, match and rank run on the
+        device with one read-back at the end; results equal
+        ``recognize_samples`` of the clip's channels. A clip that
+        overflows the peak capacity in any channel or the query lanes,
+        or whose match clamped without being provably decided, goes to
+        ``recognize_samples``. On a big index (sparse ranks and
+        ``bounds_probe_min_rows``) decided-first runs the same single
+        pass at the decide tier; bounds-first goes to
         ``_recognize_clip_probed``.
         """
-        t0 = time.time()
         samples = np.asarray(samples)
-        blen = _bucket_len(len(samples))
+        if samples.ndim not in (1, 2) or (
+                samples.ndim == 2
+                and not 1 <= samples.shape[0] <= MAX_CLIP_CHANNELS):
+            raise ValueError(
+                f"recognize_clip takes a (N,) clip or a (C, N) clip of 1 to "
+                f"{MAX_CLIP_CHANNELS} channels, not shape {samples.shape}; "
+                "pass more channels to recognize_samples")
+        rows = len(np.atleast_2d(samples))
+        with span("sia.recognize_clip", channels=rows):
+            return self._recognize_clip(samples, rows, topn)
+
+    def _recognize_clip(self, samples: np.ndarray, rows: int,
+                        topn: Optional[int]) -> Dict:
+        t0 = time.time()
+        n = samples.shape[-1]
+        blen = _bucket_len(n)
         if (blen - self.config.window_size) // self.config.hop + 1 > 1 << 16:
             # > ~51 min: the on-device dedup packs offsets into 16 bits
             return self._handoff(samples, topn, "long")
         index = self._ensure_device_index()
-        delta_min, delta_range = self._delta_params_for(len(samples))
+        delta_min, delta_range = self._delta_params_for(n)
         n_songs = self._n_songs()
-        # dedup-sort + search cost is linear in query lanes: a 5 s clip
-        # yields ~1-2K unique pairs
-        q_cap = 2048 if len(samples) <= 6 * self.config.sample_rate else 4096
+        # dedup-sort + search cost is linear in query lanes: a 5 s mono
+        # clip yields ~1-2K unique pairs. A 5 s channel at 0 dB SNR
+        # reaches ~2,100 lanes, so each row of a stereo clip gets the
+        # long clip's 4,096
+        q_cap = rows * (2048 if n <= 6 * self.config.sample_rate
+                        and rows == 1 else 4096)
         if self._is_spanned:
             return self._recognize_clip_spanned(
                 samples, index, n_songs=n_songs, delta_min=delta_min,
                 delta_range=delta_range, q_cap=q_cap, topn=topn, t0=t0)
         one_cap = self.config.match_capacity_fast
-        if self._use_sparse(len(samples)) and self._big_index(index):
+        if self._use_sparse(n) and self._big_index(index):
             if not self._decide_first():
                 return self._recognize_clip_probed(
                     samples, index, n_songs=n_songs, delta_min=delta_min,
@@ -1247,6 +1272,7 @@ class SIA:
         raw, (n_pairs, n_peaks, n_hashes) = raw_to_host(
             raw, n_pairs, n_peaks, n_hashes)
         device_time = time.time() - t0
+        annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
         reason = self._handoff_reason(
             n_peaks, n_hashes, q_cap,
             (raw.total_rows > one_cap or raw.n_dropped > 0)
@@ -1259,8 +1285,8 @@ class SIA:
     def _handoff_reason(self, n_peaks: int, n_hashes: int, q_cap: int,
                         undecided: bool) -> Optional[str]:
         """Why a clip's single pass cannot answer it, or None: its peaks
-        or its query lanes overflowed, or its clamped match is not
-        provably decided."""
+        (in any channel) or its query lanes overflowed, or its clamped
+        match is not provably decided."""
         if n_peaks > self.config.peak_capacity:
             return "peaks"
         if n_hashes > q_cap:
@@ -1269,10 +1295,11 @@ class SIA:
 
     def _handoff(self, samples: np.ndarray, topn: Optional[int],
                  reason: str) -> Dict:
-        """``recognize_samples`` for a clip its single pass could not
-        answer, ``reason`` naming the test that sent it on."""
+        """``recognize_samples`` of the channels of a clip its single pass
+        could not answer, ``reason`` naming the test that sent it on."""
         with span("sia.handoff", reason=reason):
-            return self.recognize_samples([samples], topn=topn)
+            return self.recognize_samples(list(np.atleast_2d(samples)),
+                                          topn=topn)
 
     def _recognize_clip_spanned(self, samples: np.ndarray, dev, *,
                                 n_songs: int, delta_min: int,
@@ -1294,6 +1321,7 @@ class SIA:
             vote_rank=self._rank_for(fast))
         raw, (span_max, n_pairs, n_peaks, n_hashes) = raw_to_host(raw, *counts)
         device_time = time.time() - t0
+        annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
         reason = self._handoff_reason(
             n_peaks, n_hashes, q_cap,
             (span_max > fast or raw.n_dropped > 0) and not self._decided(raw))
@@ -1317,6 +1345,7 @@ class SIA:
         with span("sia.readback"):
             counts = torch.stack([c.to(torch.int64) for c in counts]).cpu()
         n_pairs, n_peaks, n_hashes, total = (int(v) for v in counts)
+        annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
         reason = self._handoff_reason(n_peaks, n_hashes, q_cap, False)
         if reason:
             # capacity overflow (peaks or query lanes): the two-pass path

@@ -6,10 +6,12 @@ everything on the device and reads back once:
 
 1. fingerprint: fused (K1 -> K2 -> K3 on CUDA) where ``use_fused``, the
    plain dB pipeline otherwise (configurations the kernels do not take),
-2. query dedup on the device: sort the hash lanes by (hash, offset) with
-   invalid lanes forced to the max key, then first-occurrence masks for
-   unique (hash, offset) pairs and unique hashes (the reference's
-   Python-set + mapper, ``recognizer.py:237-242,378-382``),
+   one row a channel (a stereo clip is one B = 2 call),
+2. query dedup on the device: sort the hash lanes of every row by (hash,
+   offset) with invalid lanes forced to the max key, then
+   first-occurrence masks for unique (hash, offset) pairs and unique
+   hashes (the reference's Python-set + mapper,
+   ``recognizer.py:237-242,378-382``),
 3. match + vote + rank against the device index: the dense histogram, or
    past ``sparse_threshold`` vote bins one of the sparse ranks.
 
@@ -26,22 +28,30 @@ from ..index.search import query_key64
 from ..index.store import DeviceIndex
 from ..ops.fingerprint import (Fingerprints, fingerprint_batch,
                                fingerprint_batch_fused)
-from ..profiling import spanned
+from ..profiling import span
 from .lookup import (_expand_any_spans, _is_stacked, _pruned_or_sort,
                      _rank_by_name, check_vote_key, match_by_rank, query_total)
 
 _M32 = 0xFFFFFFFF
 
 
-@spanned("match.dedup")
 def _fingerprint_dedup(fp: Fingerprints, query_capacity: int):
-    """One clip's fingerprint lanes -> sorted, deduped query lanes.
+    """One clip's fingerprint lanes, of its C channel rows -> sorted,
+    deduped query lanes: the set union of the rows' (hash, offset) pairs
+    (``recognizer.py:377-382``).
 
     Returns (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
-    n_hashes_total): the first ``query_capacity`` valid lanes (in lane
-    order), sorted by (hash, offset) with invalid lanes last.
+    n_hashes_total): the first ``query_capacity`` valid lanes (in
+    row-major lane order), sorted by (hash, offset) with invalid lanes
+    last; ``n_hashes_total`` counts the valid lanes of every row.
     """
-    hi, lo, ex, t1, valid = (a[0] for a in fp[:5])
+    with span("match.dedup", rows=fp.hi.shape[0],
+              query_capacity=query_capacity):
+        return _dedup_lanes(*(a.reshape(-1) for a in fp[:5]),
+                            query_capacity)
+
+
+def _dedup_lanes(hi, lo, ex, t1, valid, query_capacity: int):
     n_hashes_total = valid.sum()
 
     # order-preserving compaction of the valid lanes to query_capacity
@@ -84,14 +94,14 @@ def recognize_fingerprints(fp: Fingerprints, index: DeviceIndex, *,
                            sparse_threshold: int = 16_000_000,
                            vote_rank: str = "pruned", expand_block: int = 0,
                            expand_runs: int = 0):
-    """Dedup + match of one clip's fingerprints (batch of 1).
+    """Dedup + match of one clip's fingerprints (one row a channel).
 
     Past ``sparse_threshold`` vote bins, ``vote_rank`` picks the sparse
     rank: "pruned" (when ``rank_candidates > 0``; "sort" otherwise),
     "sort" or "scan". Returns (RawMatch, n_pairs, n_peaks,
-    n_hashes_total), all tensors on the device. The caller checks
-    n_hashes_total against query_capacity and n_peaks against the peak
-    capacity.
+    n_hashes_total), all tensors on the device, ``n_peaks`` the largest
+    of the rows'. The caller checks n_hashes_total against
+    query_capacity and n_peaks against the peak capacity.
     """
     (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
      n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
@@ -103,15 +113,16 @@ def recognize_fingerprints(fp: Fingerprints, index: DeviceIndex, *,
         match_capacity=match_capacity, topn=topn,
         n_candidates=rank_candidates, expand_block=expand_block,
         expand_runs=expand_runs)
-    return raw, n_pairs, fp.n_peaks[0], n_hashes_total
+    return raw, n_pairs, fp.n_peaks.max(), n_hashes_total
 
 
 def _fingerprint_clip(samples: torch.Tensor, n_valid: torch.Tensor, *,
                       fs: int, wsize: int, hop: int, amp_min: float,
                       radius: int, fan_value: int, min_dt: int, max_dt: int,
                       peak_capacity: int, use_fused: bool) -> Fingerprints:
-    """The fingerprint of a (1, N) clip, fused or plain, refusing clips
-    whose frame offsets do not fit the dedup's 16-bit packing."""
+    """The fingerprint of a (C, N) clip, one row a channel, fused or
+    plain, refusing clips whose frame offsets do not fit the dedup's
+    16-bit packing."""
     n_frames_max = (samples.shape[1] - wsize) // hop + 1
     if n_frames_max > 1 << 16:
         raise ValueError(
@@ -138,7 +149,7 @@ def recognize_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
                         sparse_threshold: int = 16_000_000,
                         vote_rank: str = "pruned", expand_block: int = 0,
                         expand_runs: int = 0):
-    """(1, N) f32 clip, (1,) valid length -> (RawMatch, n_pairs, n_peaks,
+    """(C, N) f32 clip, (C,) valid lengths -> (RawMatch, n_pairs, n_peaks,
     n_hashes_total) on the device; nothing is read back here.
     ``use_fused=False`` fingerprints with the plain ``fingerprint_batch``,
     for configurations outside the kernels' contract."""
@@ -178,8 +189,8 @@ def fingerprint_probe_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
      n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
     total, lb, ub = query_total(index, sort_hi, lo, ex, q_valid,
                                 with_bounds=True)
-    return ((sort_hi, lo, ex, t1, q_valid, q_first), n_pairs, fp.n_peaks[0],
-            n_hashes_total, total, lb, ub)
+    return ((sort_hi, lo, ex, t1, q_valid, q_first), n_pairs,
+            fp.n_peaks.max(), n_hashes_total, total, lb, ub)
 
 
 def recognize_on_device_spanned(samples: torch.Tensor, n_valid: torch.Tensor,
@@ -226,4 +237,4 @@ def recognize_on_device_spanned(samples: torch.Tensor, n_valid: torch.Tensor,
         raw = _rank_by_name(vote_rank if vote_rank != "pruned" else "sort")(
             sid, delta, first, valid, total, n_dropped,
             prefix=match_capacity if blocked else 0, **kw)
-    return raw, span_max, n_pairs, fp.n_peaks[0], n_hashes_total
+    return raw, span_max, n_pairs, fp.n_peaks.max(), n_hashes_total

@@ -3,10 +3,12 @@ block, and the launch counts and device events of a profiled call.
 
 Spans
 -----
-``span(name, **attrs)`` marks the work of one layer. It records only while
-a ``torch.profiler`` session is running (``device_trace`` below, or any
-``torch.profiler.profile``); otherwise it reads one flag and returns one
-shared no-op context. While a session runs, a span
+``span(name, **attrs)`` marks the work of one layer; ``annotate(name,
+**attrs)`` adds attributes known only inside it, such as counts read
+back. It records only while a ``torch.profiler`` session is running
+(``device_trace`` below, or any ``torch.profiler.profile``); otherwise it
+reads one flag and returns one shared no-op context. While a session
+runs, a span
 
 - is a host op named ``name`` in the profiler's trace, on the profiler's
   clock, so a ``device_trace`` timeline shows each span above the kernels
@@ -22,12 +24,15 @@ A span launches nothing, copies nothing and synchronizes nothing.
 The spans of the port, from a request down:
 
 - ``sia.recognize_clip``: ``SIA.recognize_clip``, the root of a listener's
-  clip.
+  clip; ``channels`` its rows (1 mono, 2 stereo) and, once its pass has
+  read back, ``lanes`` the valid fingerprint lanes of every row and
+  ``pairs`` the unique (hash, offset) pairs left after the dedup.
 - ``fp.peaks``: K1-K3, or their plain twins, from samples to peak lists.
 - ``fp.hash``: SHA-1 pairing (``ops/hashes``: ``csrc/sha1.cu`` on the card,
   the plain twin on the CPU); ``impl`` is ``cuda`` or ``torch``, ``lanes``
   the lanes hashed.
-- ``match.dedup``: the on-device query dedup.
+- ``match.dedup``: the on-device query dedup; ``rows`` the channel rows it
+  takes the union of, ``query_capacity`` the lanes it keeps.
 - ``match.rank``: one match dispatch: search, expansion and vote rank.
 - ``sia.readback``: the host blocked on the device while it copies back.
 - ``sia.align``: the reference-shaped result records, on the host.
@@ -88,7 +93,7 @@ class SpanRecord(NamedTuple):
 
 _NOOP = contextlib.nullcontext()
 # the process's last MAX_RECORDS records, written from any thread; each
-# thread nests its own spans (the indexes of its open spans)
+# thread nests its own spans (its open spans, innermost last)
 _records: deque = deque(maxlen=MAX_RECORDS)
 _lock = threading.Lock()
 _serial = itertools.count()
@@ -118,9 +123,9 @@ class _Span:
 
     def __enter__(self):
         stack = _stack()
-        self._parent = stack[-1] if stack else -1
+        self._parent = stack[-1]._index if stack else -1
         self._index = next(_serial)
-        stack.append(self._index)
+        stack.append(self)
         # a FUNCTION-scope host op, not record_function: on an H100 (torch
         # 2.11) the profiler gives a user annotation a twin on the device
         # timeline, which a trace's device intervals would count as busy
@@ -157,7 +162,16 @@ def record(name: str, start_ns: int, end_ns: int) -> None:
         return
     stack = _stack()
     _add(SpanRecord(next(_serial), name, threading.get_ident(), start_ns,
-                    end_ns, stack[-1] if stack else -1, {}))
+                    end_ns, stack[-1]._index if stack else -1, {}))
+
+
+def annotate(name: str, **attrs) -> None:
+    """Add ``attrs`` to the innermost span ``name`` open on this thread
+    (none open, or no profiler: nothing)."""
+    for sp in reversed(_stack()):
+        if sp._name == name:
+            sp._attrs.update(attrs)
+            return
 
 
 def span_records() -> list:

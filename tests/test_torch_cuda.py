@@ -474,6 +474,54 @@ def test_recognize_clip_syncs_only_to_copy(cuda, cfg):
     assert got["results"][0]["song_name"] == "s1"
 
 
+@pytest.mark.parametrize("cfg", [
+    {},                                               # dense histogram
+    {"sparse_vote_threshold": 0, "bounds_probe_min_rows": 1},  # decided-first
+])
+def test_stereo_clip_on_cuda_equals_cpu(cuda, cfg):
+    """A (2, N) clip in one pass on the card: one B = 2 launch of each
+    kernel, three host syncs (the two uploads and the read-back), and the
+    CPU's answer, which is ``recognize_samples`` of its channels."""
+    import warnings
+
+    from shazam_tpu_torch.api import SIA
+    from shazam_tpu_torch.config import FingerprintConfig
+    from shazam_tpu_torch.ops.cuda import compact
+
+    songs = [(f"s{i}", synth_song(i, 10.0, seed=5)) for i in range(4)]
+    gpu = SIA(config=FingerprintConfig(**cfg), device="cuda")
+    cpu = SIA(config=FingerprintConfig(**cfg), device="cpu")
+    gpu.ingest_arrays(songs)
+    cpu.ingest_arrays(songs)
+    left = songs[1][1][30 * 2048: 30 * 2048 + 5 * 44100]
+    rng = np.random.default_rng(3)
+    right = np.clip(0.7 * left + rng.normal(0, 1500, len(left)), -32768,
+                    32767).astype(np.int16)
+    clip = np.stack([left, right])
+    gpu.recognize_clip(clip)        # uploads the index
+    torch.cuda.synchronize()
+    n = compact.KERNEL.launches
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            got = gpu.recognize_clip(clip)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    assert compact.KERNEL.launches == n + 1
+    assert got["query_time"] == 0.0          # answered in one pass
+    assert len(syncs) == 3, [(w.filename, w.lineno) for w in syncs]
+    timing = ("fingerprint_time", "query_time", "align_time", "total_time")
+
+    def strip(res):
+        return {k: v for k, v in res.items() if k not in timing}
+
+    assert strip(got) == strip(cpu.recognize_clip(clip))
+    assert strip(got) == strip(gpu.recognize_samples([left, right]))
+    assert got["results"][0]["song_name"] == "s1"
+
+
 def test_kernels_on_a_mixed_batch(cuda):
     """K1-K3 on the shapes recognize_batch and file ingest hand them: an
     empty row (n_valid = 0, pad_to_pow2's padding), a 5 s row, a 15 s row

@@ -9,10 +9,12 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   each song's channels on the host, record it in the catalog, and merge
   its sorted run into the host index. A song becomes durable only after
   its hashes are merged (the reference's set_song_fingerprinted rule).
-- ``SIA.recognize_clip``: one mono clip through fingerprint, on-device
-  dedup, match and rank with a single read-back, falling back to
-  ``recognize_samples`` (two passes, capacity tiers) when a static
-  capacity overflowed and the clamped answer is not provably exact.
+- ``SIA.recognize_clip``: one mono or stereo clip through fingerprint,
+  on-device dedup, match and rank with a single read-back; a clamped
+  answer that is not provably exact, or a query past its lanes, goes on
+  through the capacity tiers from the query or fingerprint still on the
+  device, and a peak overflow falls back to ``recognize_samples`` (two
+  passes, capacity tiers).
 - Past ``config.sparse_vote_threshold`` vote bins both paths take the
   sparse ranks (``config.vote_rank``), and on indexes of at least
   ``config.bounds_probe_min_rows`` rows the big-index escalation policy
@@ -93,6 +95,7 @@ from .match.lookup import (RawMatch, _is_stacked, match_by_rank,
                            match_query_pruned_spanned,
                            match_query_sparse_spanned, query_total,
                            query_total_spanned, raw_to_host)
+from .match import ondevice
 from .match.ondevice import (fingerprint_probe_on_device, recognize_on_device,
                              recognize_on_device_spanned)
 from .match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
@@ -889,19 +892,9 @@ class SIA:
                         early_exit: bool = False,
                         min_capacity: Optional[int] = None):
         """Match prepared query pairs with capacity tiers; returns (host
-        RawMatch, capacity actually used).
-
-        The fast tier covers typical queries; a clamped result is kept when
-        provably exact (``_decided``), else the query re-runs once at the
-        tier its exact total fits. Past ``sparse_vote_threshold`` the
-        sparse ranks replace the dense histogram, and on big indexes
-        (``bounds_probe_min_rows``) the escalation policy decides the
-        first dispatch: decided-first runs at the decide tier and keeps its
-        search bounds, bounds-first probes the exact total and dispatches
-        once at the tier it fits. Either way a re-dispatch reuses the
-        bounds instead of searching again. ``min_capacity``: a caller that
-        knows the query's exact total (a batch's clamped clip) starts at
-        the tier that fits it, with no escalation policy.
+        RawMatch, capacity actually used): the query uploaded
+        (``_query_to_device``) and matched by ``_match_tiered``, or on a
+        spanned SIA by ``_match_prepared_spanned``.
 
         ``early_exit``: the apriori match at ``match_capacity`` per batch
         (``match_query_apriori_ondevice``), where the dense histogram it
@@ -938,6 +931,34 @@ class SIA:
                 min_capacity=min_capacity)
         q_dev = self._query_to_device({name: getattr(q, name)
                                        for name in QUERY_COLUMNS})
+        return self._match_tiered(index, q_dev, n_samples, topn=topn,
+                                  min_capacity=min_capacity)
+
+    def _match_tiered(self, index: DeviceIndex, q_dev, n_samples: int, *,
+                      topn: Optional[int] = None,
+                      min_capacity: Optional[int] = None, first=None):
+        """The capacity tiers on the flat store, for a query already on
+        the device (``QUERY_COLUMNS`` order); returns (host RawMatch,
+        capacity actually used).
+
+        The fast tier covers typical queries; a clamped result is kept when
+        provably exact (``_decided``), else the query re-runs once at the
+        tier its exact total fits. Past ``sparse_vote_threshold`` the
+        sparse ranks replace the dense histogram, and on big indexes
+        (``bounds_probe_min_rows``) the escalation policy decides the
+        first dispatch: decided-first runs at the decide tier and keeps its
+        search bounds, bounds-first probes the exact total and dispatches
+        once at the tier it fits. Either way a re-dispatch reuses the
+        bounds instead of searching again. ``min_capacity``: a caller that
+        knows the query's exact total (a batch's clamped clip) starts at
+        the tier that fits it, with no escalation policy. ``first``: the
+        policy's first dispatch, made already by the caller
+        (``recognize_clip``'s single pass at the fast or the decide tier),
+        as (its tier, its host RawMatch, its search bounds or None); the
+        escalation goes on from it as from its own.
+        """
+        delta_min, delta_range = self._delta_params_for(n_samples)
+        n_songs = self._n_songs()
         caps = self._match_tiers()
         if min_capacity is not None:
             caps = [c for c in caps if c >= min_capacity] or caps[-1:]
@@ -964,11 +985,12 @@ class SIA:
 
         total = None
         big = use_sparse and min_capacity is None and self._big_index(index)
-        if big and self._decide_first():
+        decide = big and self._decide_first()
+        if first is not None:
+            cap, raw, bounds = first
+        elif decide:
             cap = self._decide_cap(caps)
             raw, bounds = run(cap, with_bounds=True)
-            clamped = raw.total_rows > cap or raw.n_dropped > 0
-            self._decide_record(1, int(clamped and not self._decided(raw)))
         elif big:
             total_d, lb, ub = query_total(index, q_dev[0], q_dev[1],
                                           q_dev[2], q_dev[4], with_bounds=True)
@@ -979,6 +1001,9 @@ class SIA:
         else:
             cap = caps[0]
             raw = run(cap)
+        if decide:
+            clamped = raw.total_rows > cap or raw.n_dropped > 0
+            self._decide_record(1, int(clamped and not self._decided(raw)))
         if total is None:
             total = int(raw.total_rows)  # exact even when clamped
         if total > cap or raw.n_dropped > 0:
@@ -1208,9 +1233,11 @@ class SIA:
         Fingerprint (the C rows in one call), on-device dedup of the
         union of their (hash, offset) pairs, match and rank run on the
         device with one read-back at the end; results equal
-        ``recognize_samples`` of the clip's channels. A clip that
-        overflows the peak capacity in any channel or the query lanes,
-        or whose match clamped without being provably decided, goes to
+        ``recognize_samples`` of the clip's channels. A clip whose query
+        lanes overflowed, or whose match clamped without being provably
+        decided, goes on from the fingerprint and query the pass left on
+        the device (``_rematch``); one that overflows the peak capacity in
+        any channel, or is longer than the dedup's 16-bit offsets, goes to
         ``recognize_samples``. On a big index (sparse ranks and
         ``bounds_probe_min_rows``) decided-first runs the same single
         pass at the decide tier; bounds-first goes to
@@ -1250,37 +1277,71 @@ class SIA:
                 samples, index, n_songs=n_songs, delta_min=delta_min,
                 delta_range=delta_range, q_cap=q_cap, topn=topn, t0=t0)
         one_cap = self.config.match_capacity_fast
-        if self._use_sparse(n) and self._big_index(index):
+        big = self._use_sparse(n) and self._big_index(index)
+        if big:
             if not self._decide_first():
                 return self._recognize_clip_probed(
                     samples, index, n_songs=n_songs, delta_min=delta_min,
                     delta_range=delta_range, q_cap=q_cap, topn=topn, t0=t0)
             one_cap = self._decide_cap(self._match_tiers())
         x, nv = self._to_device(samples)
-        raw, n_pairs, n_peaks, n_hashes = recognize_on_device(
-            x, nv, index, **self._fp_kwargs(),
-            use_fused=_fused_ok(self.config), n_songs=n_songs,
-            delta_min=delta_min, delta_range=delta_range,
-            match_capacity=one_cap, topn=topn or self.config.topn,
-            query_capacity=q_cap,
-            rank_candidates=self.config.rank_candidates,
-            sparse_threshold=self.config.sparse_vote_threshold,
-            vote_rank=self._rank_for(one_cap),
-            expand_block=self._eblk_for_cap(self._expand_block_for(index),
-                                            one_cap),
-            expand_runs=self.config.expand_block_runs)
+        # decided-first keeps its search bounds, as _match_tiered does
+        raw, n_pairs, n_peaks, n_hashes, fp, q_dev, bounds = \
+            recognize_on_device(
+                x, nv, index, **self._fp_kwargs(),
+                use_fused=_fused_ok(self.config), n_songs=n_songs,
+                delta_min=delta_min, delta_range=delta_range,
+                match_capacity=one_cap, topn=topn or self.config.topn,
+                query_capacity=q_cap,
+                rank_candidates=self.config.rank_candidates,
+                sparse_threshold=self.config.sparse_vote_threshold,
+                vote_rank=self._rank_for(one_cap),
+                expand_block=self._eblk_for_cap(
+                    self._expand_block_for(index), one_cap),
+                expand_runs=self.config.expand_block_runs, with_bounds=big)
         raw, (n_pairs, n_peaks, n_hashes) = raw_to_host(
             raw, n_pairs, n_peaks, n_hashes)
-        device_time = time.time() - t0
         annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
         reason = self._handoff_reason(
             n_peaks, n_hashes, q_cap,
             (raw.total_rows > one_cap or raw.n_dropped > 0)
             and not self._decided(raw))
+        if reason in ("lanes", "undecided"):
+            return self._rematch(
+                reason, index, fp, q_dev, n, first=(one_cap, raw, bounds),
+                q_cap=q_cap, n_pairs=n_pairs, n_hashes=n_hashes, topn=topn,
+                t0=t0)
         if reason:
             return self._handoff(samples, topn, reason)
         return self._clip_result(raw, n_pairs, max(raw.total_rows, one_cap),
-                                 device_time)
+                                 time.time() - t0)
+
+    def _rematch(self, reason: str, index: DeviceIndex, fp: Fingerprints,
+                 q_dev, n_samples: int, *, first, q_cap: int, n_pairs: int,
+                 n_hashes: int, topn: Optional[int], t0: float) -> Dict:
+        """``recognize_clip``'s continuation from what its single pass left
+        on the device, where the pass's answer is not final: its clamped
+        match is not provably decided (``undecided``: the tiers go on from
+        the pass's own dispatch, ``first``), or its channels' valid lanes
+        passed the query's ``q_cap`` (``lanes``: the fingerprint ``fp`` is
+        deduped again at the smallest power of two that holds its
+        ``n_hashes`` lanes, and that query takes the tiers from their
+        start). Either way the tiers are ``recognize_samples``' own, so the
+        result equals it."""
+        with span("sia.rematch", reason=reason):
+            if reason == "lanes":
+                q_cap = min(1 << (n_hashes - 1).bit_length(),
+                            fp.hi.numel())
+                *q_dev, n_pairs_d, _ = ondevice._fingerprint_dedup(fp, q_cap)
+                first = None
+            raw, cap = self._match_tiered(index, q_dev, n_samples,
+                                          topn=topn, first=first)
+            if reason == "lanes":
+                with span("sia.readback"):
+                    n_pairs = int(n_pairs_d)
+                annotate("sia.recognize_clip", pairs=n_pairs)
+            annotate("sia.rematch", query_capacity=q_cap, cap=cap)
+            return self._clip_result(raw, n_pairs, cap, time.time() - t0)
 
     def _handoff_reason(self, n_peaks: int, n_hashes: int, q_cap: int,
                         undecided: bool) -> Optional[str]:

@@ -15,8 +15,11 @@ everything on the device and reads back once:
 3. match + vote + rank against the device index: the dense histogram, or
    past ``sparse_threshold`` vote bins one of the sparse ranks.
 
-``fingerprint_probe_on_device`` runs steps 1-2 and the exact-total
-search instead of step 3, for the bounds-first escalation policy;
+``recognize_on_device`` also hands back the fingerprint and the query,
+so that a clip whose answer is not final goes on from them
+(``SIA._rematch``). ``fingerprint_probe_on_device`` runs steps 1-2 and
+the exact-total search instead of step 3, for the bounds-first
+escalation policy;
 ``recognize_on_device_spanned`` runs them against a spanned store.
 """
 
@@ -103,17 +106,36 @@ def recognize_fingerprints(fp: Fingerprints, index: DeviceIndex, *,
     of the rows'. The caller checks n_hashes_total against
     query_capacity and n_peaks against the peak capacity.
     """
+    return _match_fingerprints(
+        fp, index, n_songs=n_songs, delta_min=delta_min,
+        delta_range=delta_range, match_capacity=match_capacity, topn=topn,
+        query_capacity=query_capacity, rank_candidates=rank_candidates,
+        sparse_threshold=sparse_threshold, vote_rank=vote_rank,
+        expand_block=expand_block, expand_runs=expand_runs)[:4]
+
+
+def _match_fingerprints(fp: Fingerprints, index: DeviceIndex, *,
+                        n_songs: int, delta_min: int, delta_range: int,
+                        match_capacity: int, topn: int, query_capacity: int,
+                        rank_candidates: int, sparse_threshold: int,
+                        vote_rank: str, expand_block: int, expand_runs: int,
+                        with_bounds: bool = False):
+    """``recognize_fingerprints``, also returning the deduped query
+    ``q = (sort_hi, lo, ex, t1, q_valid, q_first)`` and, ``with_bounds``
+    (a sparse rank), the match's search (lb, ub), else None."""
     (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
      n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
-    raw = match_by_rank(
-        index, sort_hi, lo, ex, t1, q_valid, q_first,
+    q = (sort_hi, lo, ex, t1, q_valid, q_first)
+    out = match_by_rank(
+        index, *q,
         rank=("dense" if n_songs * delta_range <= sparse_threshold
               else vote_rank),
         n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
         match_capacity=match_capacity, topn=topn,
         n_candidates=rank_candidates, expand_block=expand_block,
-        expand_runs=expand_runs)
-    return raw, n_pairs, fp.n_peaks.max(), n_hashes_total
+        expand_runs=expand_runs, with_bounds=with_bounds)
+    raw, bounds = (out[0], out[1:]) if with_bounds else (out, None)
+    return raw, n_pairs, fp.n_peaks.max(), n_hashes_total, q, bounds
 
 
 def _fingerprint_clip(samples: torch.Tensor, n_valid: torch.Tensor, *,
@@ -148,21 +170,27 @@ def recognize_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
                         query_capacity: int = 4096, rank_candidates: int = 0,
                         sparse_threshold: int = 16_000_000,
                         vote_rank: str = "pruned", expand_block: int = 0,
-                        expand_runs: int = 0):
+                        expand_runs: int = 0, with_bounds: bool = False):
     """(C, N) f32 clip, (C,) valid lengths -> (RawMatch, n_pairs, n_peaks,
-    n_hashes_total) on the device; nothing is read back here.
+    n_hashes_total, fp, q, bounds) on the device; nothing is read back
+    here. Beside the answer it returns what the pass built, for a caller
+    that goes on from it: the fingerprint ``fp``, the deduped query ``q``
+    (as ``fingerprint_probe_on_device`` returns it) and, ``with_bounds``
+    (a sparse rank), the match's search (lb, ub), else None.
     ``use_fused=False`` fingerprints with the plain ``fingerprint_batch``,
     for configurations outside the kernels' contract."""
     fp = _fingerprint_clip(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
         peak_capacity=peak_capacity, use_fused=use_fused)
-    return recognize_fingerprints(
+    raw, n_pairs, n_peaks, n_hashes_total, q, bounds = _match_fingerprints(
         fp, index, n_songs=n_songs, delta_min=delta_min,
         delta_range=delta_range, match_capacity=match_capacity, topn=topn,
         query_capacity=query_capacity, rank_candidates=rank_candidates,
         sparse_threshold=sparse_threshold, vote_rank=vote_rank,
-        expand_block=expand_block, expand_runs=expand_runs)
+        expand_block=expand_block, expand_runs=expand_runs,
+        with_bounds=with_bounds)
+    return raw, n_pairs, n_peaks, n_hashes_total, fp, q, bounds
 
 
 def fingerprint_probe_on_device(samples: torch.Tensor, n_valid: torch.Tensor,

@@ -155,7 +155,9 @@ def test_capacity_overflows_retry_and_stay_exact(songs):
 
 def test_query_lane_overflow_hands_off(engines, monkeypatch):
     """White noise yields > 2048 hashes in 5 s: more than recognize_clip's
-    query lanes, so the clip goes to recognize_samples."""
+    query lanes, so the clip is handed on to the continuation, which
+    dedups the pass's fingerprint again on the device at 4,096 lanes
+    (no ``recognize_samples`` call) and answers as recognize_samples."""
     port, _ = engines
     noise = np.random.default_rng(0).normal(0, 8000, int(5 * FS)).astype(np.float32)
     calls = []
@@ -167,7 +169,7 @@ def test_query_lane_overflow_hands_off(engines, monkeypatch):
 
     monkeypatch.setattr(SIA, "recognize_samples", spy)
     got = port.recognize_clip(noise)
-    assert calls == [1]
+    assert calls == []
     assert got["input_hashes"] > 2048
     assert got == port.recognize_samples([noise]) | {
         k: got[k] for k in got if k.endswith("_time")}

@@ -1,7 +1,7 @@
 """The port's spans (``shazam_tpu_torch/profiling.py``) on the CPU: the
 no-op without a profiler, nesting and the profiler's trace,
 spans from other threads, the ring's bound, and the span trees of
-``recognize_clip``, its handoff and the daemon's batcher."""
+``recognize_clip``, its continuation and the daemon's batcher."""
 
 import dataclasses
 import sys
@@ -186,24 +186,42 @@ def test_recognize_clip_span_tree(sia, songs):
     assert {"sia.recognize_clip", "fp.hash", "sia.align"} <= names
 
 
-def test_undecided_clip_is_handed_off_under_a_span(songs):
+def test_undecided_clip_is_handed_off_under_a_span(songs, monkeypatch):
+    """A clamped match that is not provably decided is handed on to the
+    continuation under ``sia.rematch``: matched again at the tier its
+    total fits, from the query still on the device, with no
+    ``recognize_samples`` call, host dedup or second fingerprint."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, match_capacity_fast=64,
                               decision_escalation=False)
     engine = SIA(config=cfg, device="cpu")
     engine.ingest_arrays(songs)
     clip = _clip(songs, i=2)
     want = engine.recognize_samples([clip])
+    calls = []
+    monkeypatch.setattr(SIA, "recognize_samples",
+                        lambda self, *a, **k: calls.append(a))
     mark = _mark()
     with _cpu_profile():
         got = engine.recognize_clip(clip)
-    assert got["results"] == want["results"]
+    assert calls == []
+    timing = ("fingerprint_time", "query_time", "align_time", "total_time")
+    assert ({k: v for k, v in got.items() if k not in timing}
+            == {k: v for k, v in want.items() if k not in timing})
     recs = _since(mark)
     (root,) = [r for r in recs if r.name == "sia.recognize_clip"]
-    (handoff,) = _tree(recs, root)["sia.handoff"]
-    assert handoff.attrs == {"reason": "undecided"}
-    inside = _tree(recs, handoff)
-    assert {"fp.peaks", "fp.hash", "query.prepare", "match.rank",
-            "sia.readback", "sia.align"} <= set(inside)
+    tree = _tree(recs, root)
+    (rematch,) = tree["sia.rematch"]
+    assert rematch.parent == root.index
+    assert rematch.attrs == {"reason": "undecided", "query_capacity": 2048,
+                             "cap": cfg.match_capacity}
+    assert "sia.handoff" not in tree and "query.prepare" not in tree
+    assert len(tree["fp.peaks"]) == len(tree["match.dedup"]) == 1
+    inside = _tree(recs, rematch)
+    assert {"match.rank", "sia.readback", "sia.align"} <= set(inside)
+    assert "fp.peaks" not in inside
+    # one match round, at the tier the total fits: the fast tier the
+    # pass ran is not run again
+    assert len(inside["match.rank"]) == 1
 
 
 def test_microbatcher_records_one_queue_wait_per_request(sia, songs):

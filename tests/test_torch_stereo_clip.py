@@ -8,8 +8,10 @@ field and every key of the result, on the dense, sparse decide-first,
 bounds-first and spanned stores; equal the JAX package's
 ``recognize_samples([L, R])``; and equal the benchmark's plain reference
 (``benchmark_torch/reference``: the stereo union and ``match``). A union
-past the query lanes, or a channel past the peak capacity, hands off
-with its reason; more than two channels raise. The root span carries
+past the query lanes, or a match clamped and not provably decided, goes
+on from the pass's fingerprint and query on the device (``sia.rematch``)
+and still equals ``recognize_samples``; a channel past the peak capacity
+hands off with its reason; more than two channels raise. The root span carries
 ``channels``, ``lanes`` and ``pairs``, the dedup span ``rows`` and
 ``query_capacity``, all set before the span closes.
 """
@@ -172,22 +174,143 @@ def _records_of(fn, monkeypatch):
     return out, recs
 
 
+def _continued(recs, reason):
+    """The one ``sia.rematch`` record under the clip's root, with
+    ``reason``; no ``sia.handoff``, no host dedup (``query.prepare``) and
+    no second fingerprint (``fp.peaks``) anywhere in the clip."""
+    (root,) = [r for r in recs if r.name == "sia.recognize_clip"]
+    (rematch,) = [r for r in recs if r.name == "sia.rematch"]
+    assert rematch.parent == root.index
+    assert rematch.attrs["reason"] == reason
+    names = [r.name for r in recs]
+    assert "sia.handoff" not in names and "query.prepare" not in names
+    assert names.count("fp.peaks") == 1
+    return root, rematch
+
+
 def test_a_union_past_the_lanes_hands_off(engines, monkeypatch):
     """White noise fills a channel with peaks: two 12 s channels of it
-    pass the stereo clip's 2 x 4,096 lanes."""
+    pass the stereo clip's 2 x 4,096 lanes. The clip is handed on to the
+    continuation, not to ``recognize_samples``: its fingerprint is
+    deduped again on the device at 16,384 lanes and matched there."""
     sia = engines["dense"]
     rng = np.random.default_rng(0)
     noise = rng.normal(0, 8000, (2, 12 * FS)).astype(np.float32)
     calls = _handoffs(monkeypatch)
+    seen = _raw_of(monkeypatch)
     got, recs = _records_of(lambda: sia.recognize_clip(noise),
                             monkeypatch)
-    assert calls == [2]
-    (handoff,) = [r for r in recs if r.name == "sia.handoff"]
-    assert handoff.attrs == {"reason": "lanes"}
-    (root,) = [r for r in recs if r.name == "sia.recognize_clip"]
+    assert calls == []
+    root, rematch = _continued(recs, "lanes")
     assert root.attrs["lanes"] > 8192
-    assert got["input_hashes"] > 8192
+    assert [r.attrs["query_capacity"] for r in recs
+            if r.name == "match.dedup"] == [8192, 16384]
+    assert rematch.attrs == {"reason": "lanes", "query_capacity": 16384,
+                             "cap": seen[-1][1]}
+    assert root.attrs["pairs"] == got["input_hashes"] > 8192
     assert _strip(got) == _strip(sia.recognize_samples(list(noise)))
+
+
+@pytest.fixture(scope="module")
+def long_songs():
+    return [(f"song{i}", synth_song(i, 20.0, seed=300 + i))
+            for i in range(4)]
+
+
+# undecided: every clamp of the 64-row fast tier goes on up the tiers;
+# lanes: a fan value of 15 passes the query lanes with 0 dB noise
+CONTINUED = {"undecided": dict(match_capacity_fast=64,
+                               decision_escalation=False),
+             "lanes": dict(fan_value=15)}
+
+
+@pytest.fixture(scope="module")
+def continued_engines(long_songs):
+    out = {}
+    for reason, cfg in CONTINUED.items():
+        sia = SIA(config=FingerprintConfig(**cfg), device="cpu")
+        sia.ingest_arrays(long_songs)
+        out[reason] = sia
+    return out
+
+
+def _noisy(x, k):
+    """``x`` under white noise of its own power (0 dB SNR)."""
+    x = x.astype(np.float64)
+    y = x + np.random.default_rng(k).normal(0.0, x.std(), x.shape)
+    return y.astype(np.float32)
+
+
+def _listen_clip(songs, shape, k, noisy):
+    """A 15 s mono or a 5 s stereo clip of song ``k``, clean or at 0 dB
+    SNR."""
+    song = songs[k][1]
+    if shape == "mono15":
+        rows = [song[2 * FS: 17 * FS]]
+    else:
+        part = song[3 * FS: 8 * FS]
+        rows = [part, _mic(part, k)]
+    if noisy:
+        rows = [_noisy(r, k + 50 * j) for j, r in enumerate(rows)]
+    return rows[0] if shape == "mono15" else np.stack(rows)
+
+
+@pytest.mark.parametrize("reason", list(CONTINUED))
+@pytest.mark.parametrize("shape", ["mono15", "stereo5"])
+def test_continued_clip_equals_recognize_samples(continued_engines,
+                                                 long_songs, shape, reason,
+                                                 monkeypatch):
+    """A clip the single pass cannot answer goes on on the device, with
+    no ``recognize_samples`` call, and its result and ``RawMatch`` equal
+    ``recognize_samples`` of its channels: mono and stereo alike."""
+    sia = continued_engines[reason]
+    clip = _listen_clip(long_songs, shape, 1, noisy=reason == "lanes")
+    calls = _handoffs(monkeypatch)
+    seen = _raw_of(monkeypatch)
+    got, recs = _records_of(lambda: sia.recognize_clip(clip), monkeypatch)
+    assert calls == []
+    _root, rematch = _continued(recs, reason)
+    (clip_raw, clip_cap), = seen
+    assert rematch.attrs["cap"] == clip_cap
+    seen.clear()
+    want = sia.recognize_samples(list(np.atleast_2d(clip)))
+    assert _strip(got) == _strip(want)
+    assert got["results"][0]["song_name"] == "song1"
+    (raw, cap), = seen
+    assert cap == clip_cap
+    for field in raw._fields:
+        assert np.array_equal(np.asarray(getattr(clip_raw, field)),
+                              np.asarray(getattr(raw, field))), field
+
+
+def test_decide_first_continuation_adapts_as_the_handoff(long_songs):
+    """On a store counted as big (decided-first at a 64-row decide tier
+    over a window of 4), the continued clips give the answers and leave
+    the decide tier's statistics and boost that handing them to
+    ``recognize_samples`` leaves."""
+    cfg = FingerprintConfig(**SPARSE, escalation_policy="decide",
+                            match_capacity_fast=64, match_capacity=256,
+                            decide_capacity=64, decide_adapt_window=4)
+    sia, twin = SIA(config=cfg, device="cpu"), SIA(config=cfg, device="cpu")
+    for engine in (sia, twin):
+        engine.ingest_arrays(long_songs)
+    clips = [_listen_clip(long_songs, shape, k, noisy)
+             for k in range(len(long_songs))
+             for shape in ("mono15", "stereo5") for noisy in (False, True)]
+    clips += [long_songs[k][1][FS: 6 * FS] for k in range(len(long_songs))]
+    continued = 0
+    for clip in clips:
+        # the twin hands the clip to recognize_samples, as the
+        # continuation's callers did before it
+        twin._rematch = (lambda *a, clip=clip, topn=None, **k:
+                         twin.recognize_samples(list(np.atleast_2d(clip))))
+        got, recs = _records_of(lambda: sia.recognize_clip(clip),
+                                pytest.MonkeyPatch())
+        continued += any(r.name == "sia.rematch" for r in recs)
+        assert _strip(got) == _strip(twin.recognize_clip(clip))
+        assert (sia._decide_stats, sia._decide_boost) == (
+            twin._decide_stats, twin._decide_boost)
+    assert continued >= 4 and sia._decide_boost > 0
 
 
 def test_a_channel_past_the_peak_capacity_hands_off(songs, monkeypatch):

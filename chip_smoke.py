@@ -81,8 +81,8 @@ Phases (each raises on failure; any failure exits non-zero):
    in phase 3, with latency, peak memory and idle share measured the same
    way, and each kernel's counter must rise in this phase. The first 8
    clips then run again under each variant config (sort rank; scan rank
-   with blocked expansion; pruned rank with 2 candidates; decided-first
-   and bounds-first escalation on; the dense histogram), and each must
+   with blocked expansion; decided-first escalation on, with and without
+   an accepted clamp; the dense histogram), and each must
    give the default run's song, offset, total matches and input hashes,
    and its matched-hash count where both counted every row or both
    stopped at the same clamp. Last, each rank alone is timed on one
@@ -278,13 +278,10 @@ BIG_VARIANTS = (
     ("sort", dict(vote_rank="sort")),
     ("scan_blocked", dict(vote_rank="scan", expand_block=128,
                           expand_block_min_capacity=0)),
-    ("pruned", dict(vote_rank="pruned")),
-    ("pruned_c2", dict(vote_rank="pruned",      # the certificate's fallback
-                       rank_candidates=2)),
     ("decide_first", dict(bounds_probe_min_rows=1,
                           escalation_policy="decide")),
-    ("bounds_first", dict(bounds_probe_min_rows=1,
-                          escalation_policy="bounds")),
+    ("decide_no_accept", dict(bounds_probe_min_rows=1,   # every clamp refit
+                              decision_escalation=False)),
     ("dense", dict(sparse_vote_threshold=1 << 31)),
 )
 FILE_SONGS = 128       # phase 5's WAV files: songs 2,714 to 2,841
@@ -1280,20 +1277,19 @@ def _match_half(sia, clip, on_card) -> dict:
     query, fingerprinted once and kept on the card. Per call: CUDA-event
     ms over 10 back-to-back calls (host enqueue included, since the path
     is launch-bound) and the device-busy ms of a profiled call."""
+    from shazam_tpu_torch.match import ondevice
     from shazam_tpu_torch.match.lookup import match_by_rank
-    from shazam_tpu_torch.match.ondevice import fingerprint_probe_on_device
 
     index = sia._ensure_device_index()
     x, nv = sia._to_device(clip)
-    q, *_ = fingerprint_probe_on_device(x, nv, index, **sia._fp_kwargs(),
-                                        query_capacity=4096)
+    fp = ondevice._fingerprint_clip(x, nv, **sia._fp_kwargs(), use_fused=True)
+    *q, _n_pairs, _n_hashes = ondevice._fingerprint_dedup(fp, 4096)
     delta_min, delta_range = sia._delta_params_for(len(clip))
     kw = dict(n_songs=sia.index.n_songs, delta_min=delta_min,
               delta_range=delta_range, topn=sia.config.topn)
     fast = sia.config.match_capacity_fast
-    paths = {f"{rank} {fast}": dict(rank=rank, match_capacity=fast,
-                                    n_candidates=256)
-             for rank in ("pruned", "sort", "scan", "dense")}
+    paths = {f"{rank} {fast}": dict(rank=rank, match_capacity=fast)
+             for rank in ("sort", "scan", "dense")}
     paths["scan blocked 65536"] = dict(rank="scan", match_capacity=65536,
                                        expand_block=128, expand_runs=1024)
     out = {}

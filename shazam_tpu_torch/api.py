@@ -13,14 +13,17 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   on-device dedup, match and rank with a single read-back; a clamped
   answer that is not provably exact, or a query past its lanes, goes on
   through the capacity tiers from the query or fingerprint still on the
-  device, and a peak overflow falls back to ``recognize_samples`` (two
-  passes, capacity tiers).
-- Past ``config.sparse_vote_threshold`` vote bins both paths take the
-  sparse ranks (``config.vote_rank``), and on indexes of at least
-  ``config.bounds_probe_min_rows`` rows the big-index escalation policy
-  (``config.escalation_policy``): decided-first, one dispatch at the
-  decide tier that keeps its search bounds for a fitted re-dispatch, or
-  bounds-first, an exact-total probe and one fitted dispatch.
+  device, and a peak overflow (or a clip past the dedup's 16-bit
+  offsets) falls back to ``recognize_samples`` (two passes, capacity
+  tiers).
+- Every dispatch decision (the tiers, the rank, the blocked expansion,
+  the big-index test, the margin test, the decide tier) and the one
+  capacity ladder live in ``match/tiers.py``. Past
+  ``config.sparse_vote_threshold`` vote bins every path takes the sparse
+  sort or scan rank (``config.vote_rank``), and on indexes of at least
+  ``config.bounds_probe_min_rows`` rows decide-first escalation: one
+  dispatch at the decide tier that keeps its search bounds for a fitted
+  re-dispatch.
 - ``SIA.ingest_files`` / ``ingest_directory``: streaming ingest of audio
   files. A header probe plans (file, channel) rows by bucket; the host
   decodes batch k+1 while the device fingerprints batch k; a song is
@@ -39,7 +42,7 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   ``load_index`` also reads its span-wise files, flattened on the host.
 - ``SIA(device_span_rows=N)``: the index in ``index/devmerge.
   SpannedDeviceStore``, spans of N rows on the device; every match
-  searches all spans (``_match_prepared_spanned``,
+  searches all spans (the ladder of ``_match_tiered``,
   ``_recognize_clip_spanned``, the batch through
   ``match_queries_batched_spanned``); ``consolidate_index`` stacks the
   spans into the serving layout (closed to ingest); ``save_index`` /
@@ -89,15 +92,11 @@ from .index.store import DeviceIndex, FingerprintIndex, build_index, merge_into
 from .match.align import align_results
 from .match.apriori import match_query_apriori_ondevice
 from .match.batched import (batched_raw_to_host, match_queries_batched,
-                            match_queries_batched_spanned,
-                            query_totals_batched)
+                            match_queries_batched_spanned)
 from .match.lookup import (RawMatch, _is_stacked, match_by_rank,
-                           match_query_pruned_spanned,
-                           match_query_sparse_spanned, query_total,
-                           query_total_spanned, raw_to_host)
-from .match import ondevice
-from .match.ondevice import (fingerprint_probe_on_device, recognize_on_device,
-                             recognize_on_device_spanned)
+                           match_query_sparse_spanned, raw_to_host)
+from .match import ondevice, tiers
+from .match.ondevice import recognize_on_device, recognize_on_device_spanned
 from .match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
 from .ops.fingerprint import (Fingerprints, fingerprint_batch,
                               fingerprint_batch_fused, fused_takes,
@@ -108,16 +107,14 @@ MAX_PEAK_CAPACITY = 1 << 22
 # channels recognize_clip fingerprints in its one pass (stereo)
 MAX_CLIP_CHANNELS = 2
 QUERY_COLUMNS = ("hi", "lo", "ex", "t", "valid", "first")
-# the JAX package's 4 GB batch guards, kept so that both packages make the
-# same dispatch decisions: the bounds-first base tier's expansion stream
-# (about 24 bytes a slot per clip) and the whole-batch re-dispatch (a
-# hashed candidate table plus six expansion arrays per clip)
+# the JAX package's 4 GB guard of a whole-batch re-dispatch (its hashed
+# candidate table plus six expansion arrays per clip), kept so that both
+# packages make the same dispatch decisions
 BATCH_GUARD_BYTES = 4 << 30
 
 
 class _PreparedBatch(NamedTuple):
-    """``SIA.prepare_batch`` output, host-resident except the optional
-    stage-1 probe's query columns and bounds: everything
+    """``SIA.prepare_batch`` output, host-resident: everything
     ``match_prepared_batch`` needs."""
 
     clips: List[np.ndarray]        # original clips (retry paths need them)
@@ -127,12 +124,6 @@ class _PreparedBatch(NamedTuple):
     topn: Optional[int]
     match_capacity: Optional[int]  # base-tier override
     fingerprint_time: float
-    # bounds-first big indexes: the uploaded query columns, each clip's
-    # exact total and the (lb, ub) search bounds on the device; None when
-    # the probe does not apply
-    q_dev: Optional[Tuple] = None
-    probe_totals: Optional[np.ndarray] = None
-    probe_bounds: Optional[Tuple] = None
 
 
 def _start_download(fp: Fingerprints):
@@ -232,10 +223,9 @@ class SIA:
         self.device_span_rows = device_span_rows
         self.index = index or build_index([], n_songs=0)
         self._max_off = 0
-        # self-tuning decide tier (config.decide_adapt_window): [attempts,
-        # undecided] over the current window, and the accumulated boost
-        self._decide_stats = [0, 0]
-        self._decide_boost = 0
+        # the decide tier of decide-first dispatches and its self-tuning
+        # state (config.decide_adapt_window)
+        self.decide = tiers.DecideTier()
         # the serving daemon's batcher and match threads may both reach
         # the first query after a change (one of them uploads the index),
         # and a device store's merges and search-view rebuilds must not
@@ -801,10 +791,10 @@ class SIA:
         q_frames = q_frames_for_max_offset(n_frames - 1)
         return -q_frames, self._max_off + 2 * q_frames
 
-    def _use_sparse(self, n_samples: int) -> bool:
+    def _sparse(self, delta_range: int) -> bool:
         """Past ``sparse_vote_threshold`` vote bins: the sparse ranks."""
-        _, delta_range = self._delta_params_for(n_samples)
-        return self._n_songs() * delta_range > self.config.sparse_vote_threshold
+        return tiers.is_sparse(self._n_songs(), delta_range,
+                               self.config.sparse_vote_threshold)
 
     def _n_songs(self) -> int:
         return max(self._live_n_songs(), 1)
@@ -893,8 +883,7 @@ class SIA:
                         min_capacity: Optional[int] = None):
         """Match prepared query pairs with capacity tiers; returns (host
         RawMatch, capacity actually used): the query uploaded
-        (``_query_to_device``) and matched by ``_match_tiered``, or on a
-        spanned SIA by ``_match_prepared_spanned``.
+        (``_query_to_device``) and matched by ``_match_tiered``.
 
         ``early_exit``: the apriori match at ``match_capacity`` per batch
         (``match_query_apriori_ondevice``), where the dense histogram it
@@ -905,11 +894,9 @@ class SIA:
         """
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(n_samples)
-        n_songs = self._n_songs()
         spanned = self._is_spanned
         if early_exit:
-            if spanned or (n_songs * delta_range
-                           > self.config.sparse_vote_threshold):
+            if spanned or self._sparse(delta_range):
                 warnings.warn(
                     "early_exit is unavailable for "
                     + ("spanned stores" if spanned
@@ -920,195 +907,69 @@ class SIA:
             else:
                 cap = self.config.match_capacity
                 raw, _used, clamped = match_query_apriori_ondevice(
-                    index, q, n_songs=n_songs, delta_min=delta_min,
+                    index, q, n_songs=self._n_songs(), delta_min=delta_min,
                     delta_range=delta_range, match_capacity=cap,
                     topn=topn or self.config.topn)
                 return raw, cap if clamped else max(int(raw.total_rows), cap)
-        if spanned:
-            return self._match_prepared_spanned(
-                index, q, n_songs=n_songs, delta_min=delta_min,
-                delta_range=delta_range, topn=topn,
-                min_capacity=min_capacity)
         q_dev = self._query_to_device({name: getattr(q, name)
                                        for name in QUERY_COLUMNS})
         return self._match_tiered(index, q_dev, n_samples, topn=topn,
                                   min_capacity=min_capacity)
 
-    def _match_tiered(self, index: DeviceIndex, q_dev, n_samples: int, *,
+    def _match_tiered(self, index, q_dev, n_samples: int, *,
                       topn: Optional[int] = None,
                       min_capacity: Optional[int] = None, first=None):
-        """The capacity tiers on the flat store, for a query already on
-        the device (``QUERY_COLUMNS`` order); returns (host RawMatch,
-        capacity actually used).
+        """The capacity ladder (``tiers.escalate``) of a query already on
+        the device (``QUERY_COLUMNS`` order), on the flat store or a
+        spanned one; returns (host RawMatch, capacity actually used).
 
-        The fast tier covers typical queries; a clamped result is kept when
-        provably exact (``_decided``), else the query re-runs once at the
-        tier its exact total fits. Past ``sparse_vote_threshold`` the
-        sparse ranks replace the dense histogram, and on big indexes
-        (``bounds_probe_min_rows``) the escalation policy decides the
-        first dispatch: decided-first runs at the decide tier and keeps its
-        search bounds, bounds-first probes the exact total and dispatches
-        once at the tier it fits. Either way a re-dispatch reuses the
-        bounds instead of searching again. ``min_capacity``: a caller that
-        knows the query's exact total (a batch's clamped clip) starts at
-        the tier that fits it, with no escalation policy. ``first``: the
-        policy's first dispatch, made already by the caller
-        (``recognize_clip``'s single pass at the fast or the decide tier),
-        as (its tier, its host RawMatch, its search bounds or None); the
-        escalation goes on from it as from its own.
+        The flat store dispatches ``match_by_rank`` (the dense histogram,
+        past ``sparse_vote_threshold`` the sort or scan rank), its clamp
+        signal the exact total. A spanned store searches every span and
+        ranks the votes together, always with a sparse rank, as in the
+        JAX package (``match_query_sparse_spanned``); each span's
+        expansion clamps on its own at the tier, so its clamp signal is
+        ``span_max``, the largest per-span count (the total on the
+        stacked layout's shared budget), exact even when clamped, and only
+        the stacked layout keeps search bounds. On a big index
+        (``tiers.big_index``) the first dispatch is decide-first.
+        ``min_capacity``: a caller that knows the query's exact total (a
+        batch's clamped clip) starts at the tier that fits it, with no
+        decide tier. ``first``: a dispatch the caller made already
+        (``recognize_clip``'s single pass), as (its tier, its host
+        RawMatch, its clamp signal, its search bounds or None); the ladder
+        goes on from it as from its own.
         """
+        cfg = self.config
         delta_min, delta_range = self._delta_params_for(n_samples)
-        n_songs = self._n_songs()
-        caps = self._match_tiers()
-        if min_capacity is not None:
-            caps = [c for c in caps if c >= min_capacity] or caps[-1:]
-        use_sparse = self._use_sparse(n_samples)
-        eblk = self._expand_block_for(index)
-        bounds = None   # an earlier search's (lb, ub), on the device
+        caps = tiers.match_tiers(cfg, min_capacity)
+        spanned = self._is_spanned
+        sparse = spanned or self._sparse(delta_range)
+        kw = dict(n_songs=self._n_songs(), delta_min=delta_min,
+                  delta_range=delta_range, topn=topn or cfg.topn,
+                  expand_runs=cfg.expand_block_runs)
 
-        def run(cap, blk=None, with_bounds=False):
-            out = match_by_rank(
-                index, *q_dev,
-                rank=self._rank_for(cap) if use_sparse else "dense",
-                n_songs=n_songs, delta_min=delta_min,
-                delta_range=delta_range, match_capacity=cap,
-                topn=topn or self.config.topn,
-                n_candidates=self.config.rank_candidates,
-                expand_block=(self._eblk_for_cap(eblk, cap) if blk is None
-                              else blk),
-                expand_runs=self.config.expand_block_runs, bounds=bounds,
-                with_bounds=with_bounds)
-            if with_bounds:
-                raw, lb, ub = out
-                return raw_to_host(raw)[0], (lb, ub)
-            return raw_to_host(out)[0]
-
-        total = None
-        big = use_sparse and min_capacity is None and self._big_index(index)
-        decide = big and self._decide_first()
-        if first is not None:
-            cap, raw, bounds = first
-        elif decide:
-            cap = self._decide_cap(caps)
-            raw, bounds = run(cap, with_bounds=True)
-        elif big:
-            total_d, lb, ub = query_total(index, q_dev[0], q_dev[1],
-                                          q_dev[2], q_dev[4], with_bounds=True)
-            total = int(total_d)
-            bounds = (lb, ub)
-            cap = next((c for c in caps if c >= total), caps[-1])
-            raw = run(cap)
-        else:
-            cap = caps[0]
-            raw = run(cap)
-        if decide:
-            clamped = raw.total_rows > cap or raw.n_dropped > 0
-            self._decide_record(1, int(clamped and not self._decided(raw)))
-        if total is None:
-            total = int(raw.total_rows)  # exact even when clamped
-        if total > cap or raw.n_dropped > 0:
-            # n_dropped > 0 with total <= cap comes only from the blocked
-            # expansion's nonempty-run budget (expand_block_runs)
-            if self._decided(raw):
-                return raw, max(total, cap)
-            if total > cap:
-                fit = next((c for c in caps if c >= total), caps[-1])
-                if fit != cap:      # not already at the last tier
-                    cap = fit
-                    raw = run(cap)
-            if eblk and raw.n_dropped > 0 and total <= cap:
-                # more nonempty runs than expand_block_runs: no tier cures
-                # that, the row-by-row expansion is the exact fallback
-                raw = run(cap, blk=0)
-        return raw, cap
-
-    def _match_prepared_spanned(self, dev, q, *, n_songs: int, delta_min: int,
-                                delta_range: int, topn: Optional[int],
-                                min_capacity: Optional[int] = None):
-        """``_match_prepared`` on a spanned store: every span searched, the
-        votes ranked together, always with a sparse rank, as in the JAX
-        package.
-
-        Per span each expansion clamps on its own at the tier, so the
-        retry signal is ``span_max``, the largest per-span count (the
-        total on the stacked layout's shared budget), exact even when
-        clamped. On a big store decided-first (stacked, blocked) runs once
-        at the decide tier and keeps its bounds, and bounds-first probes
-        the exact total over the spans and runs at the tier it fits; a
-        clamp is kept when provably decided, else the match runs again at
-        the tier ``span_max`` fits, and a blocked run-budget drop runs
-        again row by row. Returns (host RawMatch, capacity used): when no
-        span clamped, every row voted, and the capacity reported covers
-        the total."""
-        caps = self._match_tiers()
-        if min_capacity is not None:
-            caps = [c for c in caps if c >= min_capacity] or caps[-1:]
-        n_cand = self.config.rank_candidates
-        eblk = self._expand_block_for_spanned(dev)
-        q_dev = self._query_to_device({name: getattr(q, name)
-                                       for name in QUERY_COLUMNS})
-        kw = dict(n_songs=n_songs, delta_min=delta_min,
-                  delta_range=delta_range, topn=topn or self.config.topn)
-        bounds = None   # a stacked search's (n_spans, Q) (lb, ub)
-
-        def run(cap, blk=None, with_bounds=False):
-            vrank = self._rank_for(cap)
-            out = ()
-            if vrank == "pruned" and n_cand > 0 and not with_bounds:
-                raw, span_max, _ok = match_query_pruned_spanned(
-                    dev, *q_dev, match_capacity=cap, n_candidates=n_cand,
-                    **kw)
-            else:
+        def run(cap, blk=None, bounds=None, with_bounds=False):
+            args = dict(kw, match_capacity=cap, bounds=bounds, expand_block=(
+                tiers.expand_block(cfg, index, cap) if blk is None else blk))
+            rank = tiers.rank_for(cfg, cap, sparse)
+            if spanned:
                 raw, span_max, *out = match_query_sparse_spanned(
-                    dev, *q_dev, match_capacity=cap,
-                    vote_rank="sort" if vrank == "pruned" else vrank,
-                    expand_block=(self._eblk_for_cap(eblk, cap)
-                                  if blk is None else blk),
-                    expand_runs=self.config.expand_block_runs,
-                    bounds=bounds, with_bounds=with_bounds, **kw)
-            raw, (span_max,) = raw_to_host(raw, span_max)
-            return raw, span_max, tuple(out) or None
+                    index, *q_dev, vote_rank=rank,
+                    with_bounds=with_bounds and _is_stacked(index), **args)
+                raw, (span_max,) = raw_to_host(raw, span_max)
+                return raw, span_max, tuple(out) or None
+            out = match_by_rank(index, *q_dev, rank=rank,
+                                with_bounds=with_bounds, **args)
+            raw, *out = out if with_bounds else (out,)
+            raw = raw_to_host(raw)[0]
+            return raw, raw.total_rows, tuple(out) or None
 
-        stacked = _is_stacked(dev)
-        rows = self.config.bounds_probe_min_rows
-        big = (min_capacity is None and rows
-               and self._spanned_rows(dev) >= rows)
-        if big and self._decide_first() and stacked and eblk:
-            cap = self._decide_cap(caps)
-            raw, span_max, bounds = run(cap, with_bounds=True)
-            clamped = span_max > cap or raw.n_dropped > 0
-            self._decide_record(1, int(clamped and not self._decided(raw)))
-        elif big:
-            if stacked:
-                total, lb, ub = query_total_spanned(
-                    dev, q_dev[0], q_dev[1], q_dev[2], q_dev[4],
-                    with_bounds=True)
-                bounds = (lb, ub)
-            else:
-                total = query_total_spanned(dev, q_dev[0], q_dev[1],
-                                            q_dev[2], q_dev[4])
-            total = int(total)
-            cap = next((c for c in caps if c >= total), caps[-1])
-            raw, span_max, _ = run(cap)
-        else:
-            cap = caps[0]
-            raw, span_max, _ = run(cap)
-        if span_max > cap or raw.n_dropped > 0:
-            if self._decided(raw):
-                return raw, max(raw.total_rows, cap)
-            if span_max > cap:
-                fit = next((c for c in caps if c >= span_max), caps[-1])
-                if fit != cap:      # not already at the last tier
-                    cap = fit
-                    raw, span_max, _ = run(cap)
-            if eblk and raw.n_dropped > 0 and span_max <= cap:
-                # the stacked blocked expansion's nonempty-run budget
-                # (expand_block_runs per span) overflowed: no tier cures
-                # that, the row-by-row expansion is the exact fallback
-                raw, span_max, _ = run(cap, blk=0)
-        if span_max <= cap and raw.n_dropped == 0:
-            return raw, max(raw.total_rows, cap)
-        return raw, cap
+        big = (sparse and min_capacity is None
+               and tiers.big_index(cfg, index))
+        return tiers.escalate(run, caps, cfg,
+                              decide=self.decide if big else None,
+                              first=first)
 
     def _query_to_device(self, cols: Dict[str, np.ndarray]):
         """Query columns (one query or a (B, Q) stack) on the device, in
@@ -1117,113 +978,6 @@ class SIA:
                                             if name in ("hi", "lo", "ex", "t")
                                             else bool)).to(self.device)
                 for name in QUERY_COLUMNS]
-
-    def _big_index(self, index: DeviceIndex) -> bool:
-        """The index holds at least ``bounds_probe_min_rows`` real rows (0:
-        never), where the escalation policy chooses the first dispatch.
-        Real rows, not the capacity the JAX package reads: a device
-        store's reserved capacity must not change how a clip is matched."""
-        rows = self.config.bounds_probe_min_rows
-        return bool(rows) and index.n_rows >= rows
-
-    def _decide_first(self) -> bool:
-        pol = self.config.escalation_policy
-        return pol == "decide" or (pol == "auto"
-                                   and self.config.decision_escalation)
-
-    def _rank_for(self, cap: int) -> str:
-        """config.vote_rank for a capacity tier: "auto" is sort at the fast
-        tier and scan above it. (The JAX package's "auto" takes the pruned
-        rank at the fast tier, a TPU choice; every rank gives the same
-        answer, and on the H100 the pruned rank's eager form runs the sort
-        rank as well, for its fallback.)"""
-        v = self.config.vote_rank
-        if v == "auto":
-            return ("sort" if cap <= self.config.match_capacity_fast
-                    else "scan")
-        return v
-
-    def _eblk_for_cap(self, eblk: int, cap: int) -> int:
-        """Blocked expansion only from expand_block_min_capacity on: below
-        it the run budget's 2 * expand_block_runs * B slots outweigh the
-        tier's own capacity."""
-        return eblk if cap >= self.config.expand_block_min_capacity else 0
-
-    @staticmethod
-    def _index_rows(index: DeviceIndex) -> int:
-        """Row capacity of the device index (real and padding rows)."""
-        return int(index.payload.shape[0])
-
-    def _expand_block_for(self, index: DeviceIndex) -> int:
-        """config.expand_block where the device rows split into whole
-        blocks (they are padded to a multiple of 512), else 0."""
-        blk = self.config.expand_block
-        return blk if blk and self._index_rows(index) % blk == 0 else 0
-
-    def _expand_block_for_spanned(self, dev) -> int:
-        """config.expand_block on the stacked layout, whose flat rows split
-        into whole blocks when span_rows does; 0 per span (no blocked
-        variant there, as in the JAX package)."""
-        blk = self.config.expand_block
-        if not blk or not _is_stacked(dev):
-            return 0
-        return blk if dev.key64.shape[1] % blk == 0 else 0
-
-    @staticmethod
-    def _spanned_rows(dev) -> int:
-        """Real rows of a spanned store's views: ``_big_index``'s rule (the
-        JAX package reads the spans' capacity)."""
-        if _is_stacked(dev):
-            return dev.n_rows
-        return sum(view.n_rows for view in dev)
-
-    def _decided(self, raw) -> bool:
-        """True iff a capacity-clamped host RawMatch is provably the full
-        answer: every excluded run adds <= 1 vote to any (song, delta)
-        bin, so a top-1 margin over the strongest challenger larger than
-        the excluded-run count cannot be overturned."""
-        if not self.config.decision_escalation:
-            return False
-        return (int(raw.top_votes[0]) - int(raw.runner_votes)
-                > int(raw.n_dropped))
-
-    def _match_tiers(self) -> List[int]:
-        caps = [self.config.match_capacity_fast, self.config.match_capacity]
-        if caps[0] >= caps[1]:
-            caps = caps[1:]
-        while caps[-1] < self.config.match_capacity_max:
-            step = 2 if caps[-1] >= self.config.match_tier_fine_from else 4
-            caps.append(min(caps[-1] * step, self.config.match_capacity_max))
-        return caps
-
-    def _decide_cap(self, caps: List[int]) -> int:
-        """The decided-first dispatch tier: config.decide_capacity (0: the
-        match_capacity tier) raised by the boost ``_decide_record`` has
-        accumulated, never past decide_adapt_max unless asked for."""
-        want = self.config.decide_capacity or self.config.match_capacity
-        idx = next((i for i, c in enumerate(caps) if c >= want),
-                   len(caps) - 1)
-        idx = min(idx + self._decide_boost, len(caps) - 1)
-        while (idx > 0 and caps[idx] > self.config.decide_adapt_max
-               and caps[idx] > want):
-            idx -= 1
-        return caps[idx]
-
-    def _decide_record(self, attempts: int, undecided: int) -> None:
-        """Self-tuning decide tier: over each decide_adapt_window of
-        decided-first dispatches, an undecided share above 1/2 raises the
-        tier one step (corpora with long hyper-common runs need a larger
-        run budget before margins certify)."""
-        w = self.config.decide_adapt_window
-        if not w:
-            return
-        self._decide_stats[0] += attempts
-        self._decide_stats[1] += undecided
-        if self._decide_stats[0] >= w:
-            a, u = self._decide_stats
-            self._decide_stats = [0, 0]
-            if u * 2 > a:
-                self._decide_boost += 1
 
     def recognize_clip(self, samples: np.ndarray,
                        topn: Optional[int] = None) -> Dict:
@@ -1239,9 +993,8 @@ class SIA:
         the device (``_rematch``); one that overflows the peak capacity in
         any channel, or is longer than the dedup's 16-bit offsets, goes to
         ``recognize_samples``. On a big index (sparse ranks and
-        ``bounds_probe_min_rows``) decided-first runs the same single
-        pass at the decide tier; bounds-first goes to
-        ``_recognize_clip_probed``.
+        ``bounds_probe_min_rows``) the single pass runs at the decide tier
+        and keeps its search bounds for the continuation.
         """
         samples = np.asarray(samples)
         if samples.ndim not in (1, 2) or (
@@ -1276,41 +1029,34 @@ class SIA:
             return self._recognize_clip_spanned(
                 samples, index, n_songs=n_songs, delta_min=delta_min,
                 delta_range=delta_range, q_cap=q_cap, topn=topn, t0=t0)
-        one_cap = self.config.match_capacity_fast
-        big = self._use_sparse(n) and self._big_index(index)
-        if big:
-            if not self._decide_first():
-                return self._recognize_clip_probed(
-                    samples, index, n_songs=n_songs, delta_min=delta_min,
-                    delta_range=delta_range, q_cap=q_cap, topn=topn, t0=t0)
-            one_cap = self._decide_cap(self._match_tiers())
+        cfg = self.config
+        sparse = self._sparse(delta_range)
+        big = sparse and tiers.big_index(cfg, index)
+        one_cap = (self.decide.cap(cfg, tiers.match_tiers(cfg)) if big
+                   else cfg.match_capacity_fast)
         x, nv = self._to_device(samples)
-        # decided-first keeps its search bounds, as _match_tiered does
+        # decide-first keeps its search bounds, as _match_tiered does
         raw, n_pairs, n_peaks, n_hashes, fp, q_dev, bounds = \
             recognize_on_device(
-                x, nv, index, **self._fp_kwargs(),
-                use_fused=_fused_ok(self.config), n_songs=n_songs,
-                delta_min=delta_min, delta_range=delta_range,
-                match_capacity=one_cap, topn=topn or self.config.topn,
-                query_capacity=q_cap,
-                rank_candidates=self.config.rank_candidates,
-                sparse_threshold=self.config.sparse_vote_threshold,
-                vote_rank=self._rank_for(one_cap),
-                expand_block=self._eblk_for_cap(
-                    self._expand_block_for(index), one_cap),
-                expand_runs=self.config.expand_block_runs, with_bounds=big)
+                x, nv, index, **self._fp_kwargs(), use_fused=_fused_ok(cfg),
+                n_songs=n_songs, delta_min=delta_min,
+                delta_range=delta_range, match_capacity=one_cap,
+                topn=topn or cfg.topn, query_capacity=q_cap,
+                rank=tiers.rank_for(cfg, one_cap, sparse),
+                expand_block=tiers.expand_block(cfg, index, one_cap),
+                expand_runs=cfg.expand_block_runs, with_bounds=big)
         raw, (n_pairs, n_peaks, n_hashes) = raw_to_host(
             raw, n_pairs, n_peaks, n_hashes)
         annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
         reason = self._handoff_reason(
             n_peaks, n_hashes, q_cap,
             (raw.total_rows > one_cap or raw.n_dropped > 0)
-            and not self._decided(raw))
+            and not tiers.decided(raw, cfg))
         if reason in ("lanes", "undecided"):
             return self._rematch(
-                reason, index, fp, q_dev, n, first=(one_cap, raw, bounds),
-                q_cap=q_cap, n_pairs=n_pairs, n_hashes=n_hashes, topn=topn,
-                t0=t0)
+                reason, index, fp, q_dev, n,
+                first=(one_cap, raw, raw.total_rows, bounds), q_cap=q_cap,
+                n_pairs=n_pairs, n_hashes=n_hashes, topn=topn, t0=t0)
         if reason:
             return self._handoff(samples, topn, reason)
         return self._clip_result(raw, n_pairs, max(raw.total_rows, one_cap),
@@ -1378,69 +1124,18 @@ class SIA:
             delta_min=delta_min, delta_range=delta_range,
             match_capacity=fast, topn=topn or self.config.topn,
             query_capacity=q_cap,
-            rank_candidates=self.config.rank_candidates,
-            vote_rank=self._rank_for(fast))
+            vote_rank=tiers.rank_for(self.config, fast, True))
         raw, (span_max, n_pairs, n_peaks, n_hashes) = raw_to_host(raw, *counts)
         device_time = time.time() - t0
         annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
         reason = self._handoff_reason(
             n_peaks, n_hashes, q_cap,
-            (span_max > fast or raw.n_dropped > 0) and not self._decided(raw))
+            (span_max > fast or raw.n_dropped > 0)
+            and not tiers.decided(raw, self.config))
         if reason:
             return self._handoff(samples, topn, reason)
         return self._clip_result(raw, n_pairs, max(raw.total_rows, fast),
                                  device_time)
-
-    def _recognize_clip_probed(self, samples: np.ndarray,
-                               index: DeviceIndex, *, n_songs: int,
-                               delta_min: int, delta_range: int, q_cap: int,
-                               topn: Optional[int], t0: float) -> Dict:
-        """Bounds-first recognition of one clip on a big index: fingerprint
-        + dedup + exact-total probe, one read-back, then one match at the
-        tier the total fits, on the query still on the device and with the
-        probe's search bounds."""
-        x, nv = self._to_device(samples)
-        q_dev, *counts, lb, ub = fingerprint_probe_on_device(
-            x, nv, index, **self._fp_kwargs(),
-            use_fused=_fused_ok(self.config), query_capacity=q_cap)
-        with span("sia.readback"):
-            counts = torch.stack([c.to(torch.int64) for c in counts]).cpu()
-        n_pairs, n_peaks, n_hashes, total = (int(v) for v in counts)
-        annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
-        reason = self._handoff_reason(n_peaks, n_hashes, q_cap, False)
-        if reason:
-            # capacity overflow (peaks or query lanes): the two-pass path
-            # escalates those capacities
-            return self._handoff(samples, topn, reason)
-
-        caps = self._match_tiers()
-        cap = next((c for c in caps if c >= total), caps[-1])
-        eblk = self._expand_block_for(index)
-
-        def run(blk):
-            # n_candidates=0: "pruned" takes the sort rank here, as in the
-            # JAX package's probed path
-            return raw_to_host(match_by_rank(
-                index, *q_dev, rank=self._rank_for(cap), n_songs=n_songs,
-                delta_min=delta_min, delta_range=delta_range,
-                match_capacity=cap, topn=topn or self.config.topn,
-                n_candidates=0, expand_block=blk,
-                expand_runs=self.config.expand_block_runs,
-                bounds=(lb, ub)))[0]
-
-        raw = run(self._eblk_for_cap(eblk, cap))
-        if raw.n_dropped > 0 and not self._decided(raw) and total <= cap:
-            # a run-budget drop: the row-by-row expansion is the exact
-            # fallback (total > cap is a clamp at the last tier, which the
-            # align capacity below reports)
-            raw = run(0)
-        device_time = time.time() - t0
-        # max(total, cap) reads "unaffected by capacity": only for an exact
-        # (or provably decided) result; a last-tier clamp keeps cap so
-        # align_results flags the overflow
-        exact = total <= cap and raw.n_dropped == 0
-        align_cap = max(total, cap) if exact or self._decided(raw) else cap
-        return self._clip_result(raw, n_pairs, align_cap, device_time)
 
     def _clip_result(self, raw, n_pairs: int, align_cap: int,
                      device_time: float) -> Dict:
@@ -1507,8 +1202,7 @@ class SIA:
         """Stage 1 of ``recognize_batch``: fingerprint the clips as one
         padded batch (one read-back) and stack their host queries. A clip
         whose peaks overflowed gets an empty query here and re-runs alone
-        through ``recognize_samples`` in stage 2. On a big index under
-        bounds-first, the batched probe runs here too. None for no clips.
+        through ``recognize_samples`` in stage 2. None for no clips.
         """
         if not len(clips):
             return None
@@ -1538,26 +1232,14 @@ class SIA:
                                          for q in queries])
                          for name in QUERY_COLUMNS}
 
-            q_dev = probe_totals = probe_bounds = None
-            if (not self._is_spanned and not self._decide_first()
-                    and self.config.bounds_probe_min_rows):
-                index = self._ensure_device_index()
-                if (self._use_sparse(max(map(len, clips)))
-                        and self._big_index(index)):
-                    q_dev = self._query_to_device(stack)
-                    totals, lb, ub = query_totals_batched(
-                        index, q_dev[0], q_dev[1], q_dev[2], q_dev[4])
-                    probe_totals = totals.cpu().numpy()
-                    probe_bounds = (lb, ub)
             return _PreparedBatch(
                 clips=clips, queries=queries, stack=stack, peak_over=peak_over,
                 topn=topn, match_capacity=match_capacity,
-                fingerprint_time=time.time() - t0, q_dev=q_dev,
-                probe_totals=probe_totals, probe_bounds=probe_bounds)
+                fingerprint_time=time.time() - t0)
 
 
     def _batch_match(self, q_dev, n_samples: int, cap: int,
-                     topn: Optional[int] = None, bounds=None) -> RawMatch:
+                     topn: Optional[int] = None) -> RawMatch:
         """One batched match dispatch of a (B, Q) query stack on the device
         at tier ``cap``: the dense histogram, or past the threshold the sort
         rank with the blocked expansion where the solo path takes it.
@@ -1565,15 +1247,15 @@ class SIA:
         window, as in the JAX package."""
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(n_samples)
-        sparse = self._use_sparse(n_samples)
-        eblk = self._expand_block_for(index) if sparse else 0
+        sparse = self._sparse(delta_range)
         return match_queries_batched(
             index, *q_dev, rank="sort" if sparse else "dense",
             n_songs=self._n_songs(), delta_min=delta_min,
             delta_range=delta_range, match_capacity=cap,
             topn=topn or self.config.topn,
-            expand_block=self._eblk_for_cap(eblk, cap),
-            expand_runs=self.config.expand_block_runs, bounds=bounds)
+            expand_block=(tiers.expand_block(self.config, index, cap)
+                          if sparse else 0),
+            expand_runs=self.config.expand_block_runs)
 
     def match_prepared_batch(self, pb: _PreparedBatch) -> List[Dict]:
         """Stage 2 of ``recognize_batch``: one batched match dispatch over
@@ -1583,21 +1265,18 @@ class SIA:
         (``match_capacity`` overrides it). The solo ladder starts lower, at
         the fast tier, so a clip decided under a clamp at both reports
         lower-bound matched counts taken at different clamps, each at most
-        the exact count. On a big index decided-first takes the decide
-        tier and bounds-first the tier the probe's largest total fits,
-        under the JAX package's 4 GB guard. A clip clamped there is
-        accepted when provably decided;
-        when more than half the batch is not, the whole batch dispatches
-        again at the tier the largest total fits (guard permitting), and
-        the clips still undecided re-run alone from the tier their exact
-        total fits (``_match_prepared(min_capacity=...)``). The batch
-        ranks with the dense histogram or, past
-        ``sparse_vote_threshold``, the sort rank, which gives the
-        ``RawMatch`` of every sparse rank. A spanned SIA dispatches through
-        ``match_queries_batched_spanned`` (no escalation policy, as in the
-        JAX package), its clamp signal each clip's ``span_max``, and with
-        ``vote_rank="pruned"`` a clip whose certificate failed is matched
-        again alone (the whole batch again by the sort rank when most did).
+        the exact count. On a big index the base tier is the decide tier.
+        A clip clamped there is accepted when provably decided
+        (``tiers.decided``); when more than half the batch is not, the
+        whole batch dispatches again at the tier the largest total fits
+        (under the JAX package's 4 GB guard), and the clips still
+        undecided re-run alone from the tier their exact total fits
+        (``_match_prepared(min_capacity=...)``). The batch ranks with the
+        dense histogram or, past ``sparse_vote_threshold``, the sort rank,
+        which gives the ``RawMatch`` of every sparse rank. A spanned SIA
+        dispatches through ``match_queries_batched_spanned`` (no decide
+        tier, as in the JAX package), its clamp signal each clip's
+        ``span_max``.
         """
         with span("sia.match_prepared_batch", clips=len(pb.clips)):
             clips, queries, peak_over = pb.clips, pb.queries, pb.peak_over
@@ -1605,96 +1284,60 @@ class SIA:
             topn = pb.topn
             n_samples = max(map(len, clips))
             t0 = time.time()
+            cfg = self.config
             index = self._ensure_device_index()
-            q_dev = pb.q_dev or self._query_to_device(pb.stack)
-            probe_bounds = None
+            q_dev = self._query_to_device(pb.stack)
             spanned = self._is_spanned
-            use_sparse = self._use_sparse(n_samples)
+            delta_min, delta_range = self._delta_params_for(n_samples)
 
-            def dispatch(cap, pruned=True):
-                """(host RawMatch, per-clip certificates or None, per-clip
-                clamp signals)."""
+            def dispatch(cap):
+                """(host RawMatch, per-clip clamp signals)."""
                 if not spanned:
                     raw = batched_raw_to_host(self._batch_match(
-                        q_dev, n_samples, cap, topn=topn,
-                        bounds=probe_bounds))
-                    return raw, None, raw.total_rows[:n_real]
-                delta_min, delta_range = self._delta_params_for(n_samples)
-                n_cand = (self.config.rank_candidates
-                          if pruned and use_sparse
-                          and self._rank_for(cap) == "pruned" else 0)
-                out = match_queries_batched_spanned(
+                        q_dev, n_samples, cap, topn=topn))
+                    return raw, raw.total_rows[:n_real]
+                raw, span_max = match_queries_batched_spanned(
                     index, *q_dev, n_songs=self._n_songs(),
                     delta_min=delta_min, delta_range=delta_range,
-                    match_capacity=cap,
-                    topn=topn or self.config.topn, rank_candidates=n_cand,
-                    vote_rank="pruned" if n_cand else "sort",
-                    expand_block=self._eblk_for_cap(
-                        self._expand_block_for_spanned(index), cap),
-                    expand_runs=self.config.expand_block_runs)
-                oks = out[2].cpu().numpy()[:n_real] if n_cand else None
-                return (batched_raw_to_host(out[0]), oks,
-                        out[1].cpu().numpy()[:n_real])
+                    match_capacity=cap, topn=topn or cfg.topn,
+                    expand_block=tiers.expand_block(cfg, index, cap),
+                    expand_runs=cfg.expand_block_runs)
+                return (batched_raw_to_host(raw),
+                        span_max.cpu().numpy()[:n_real])
 
-            tiers = self._match_tiers()
-            base_cap = pb.match_capacity or self.config.match_capacity
-            decide_first = self._decide_first()
-            big = (not spanned and use_sparse and self._big_index(index))
-            if big and decide_first:
-                if pb.match_capacity is None:
-                    base_cap = self._decide_cap(tiers)
-            elif big:
-                if pb.probe_bounds is not None:
-                    probe_totals = pb.probe_totals
-                    probe_bounds = pb.probe_bounds
-                else:
-                    totals, lb, ub = query_totals_batched(
-                        index, q_dev[0], q_dev[1], q_dev[2], q_dev[4])
-                    probe_totals = totals.cpu().numpy()
-                    probe_bounds = (lb, ub)
-                if pb.match_capacity is None:
-                    need = int(probe_totals[:n_real].max())
-                    max_stream = BATCH_GUARD_BYTES // (24 * n_real)
-                    allowed = ([c for c in tiers if c <= max_stream]
-                               or tiers[:1])
-                    base_cap = min(next((c for c in tiers if c >= need),
-                                        tiers[-1]), allowed[-1])
+            caps = tiers.match_tiers(cfg)
+            base_cap = pb.match_capacity or cfg.match_capacity
+            # the decide tier, where the caller did not pin the base tier
+            decide = (not spanned and pb.match_capacity is None
+                      and self._sparse(delta_range)
+                      and tiers.big_index(cfg, index))
+            if decide:
+                base_cap = self.decide.cap(cfg, caps)
 
-            raw, oks, clamp = dispatch(base_cap)
+            raw, clamp = dispatch(base_cap)
             batch_cap = base_cap
             decided_ids: set = set()
             retried: Dict[int, Tuple] = {}
-            if oks is not None and (~oks).sum() > max(n_real // 2, 1):
-                # most certificates failed: the whole batch by the sort rank
-                raw, oks, clamp = dispatch(batch_cap, pruned=False)
 
             def undecided(clamped):
-                """The clamped clips whose margin does not decide them (a
-                clip whose pruned certificate failed is never decided)."""
-                if not self.config.decision_escalation:
-                    return clamped
-                margin_ok = (raw.top_votes[:n_real, 0]
-                             - raw.runner_votes[:n_real]
-                             > raw.n_dropped[:n_real])
-                if oks is not None:
-                    margin_ok &= oks
+                """The clamped clips whose margin does not decide them."""
+                margin_ok = tiers.decided(raw, cfg)[:n_real]
                 decided_ids.update(int(i) for i in clamped if margin_ok[i])
                 return clamped[~margin_ok[clamped]]
 
-            if tiers[-1] > batch_cap:
+            if caps[-1] > batch_cap:
                 over = undecided(np.nonzero(
                     (clamp > batch_cap) | (raw.n_dropped[:n_real] > 0))[0])
-                if big and decide_first and pb.match_capacity is None:
-                    self._decide_record(n_real, len(over))
+                if decide:
+                    self.decide.record(cfg, n_real, len(over))
                 if len(over) > max(n_real // 2, 1):
-                    cand_cap = next(
-                        (c for c in tiers if c >= int(clamp.max())), tiers[-1])
+                    cand_cap = tiers.fit(caps, int(clamp.max()))
                     m_bits = min(24,
                                  max(18, (cand_cap * 16 - 1).bit_length()))
                     if n_real * ((1 << m_bits) * 4 + 24 * cand_cap) \
                             <= BATCH_GUARD_BYTES:
                         batch_cap = cand_cap
-                        raw, oks, clamp = dispatch(batch_cap)
+                        raw, clamp = dispatch(batch_cap)
                         # judged against the old dispatch
                         decided_ids.clear()
                         over = undecided(np.nonzero(
@@ -1705,15 +1348,6 @@ class SIA:
                         retried[int(i)] = self._match_prepared(
                             queries[i], len(clips[i]), topn=topn,
                             min_capacity=int(clamp[i]))
-            if oks is not None:
-                # a failed certificate leaves a row that is not exact: alone,
-                # the pruned rank falls back to the sort rank on the device
-                for i in np.nonzero(~oks)[0]:
-                    if int(i) not in retried and int(i) not in peak_over:
-                        with span("match.solo_retry"):
-                            retried[int(i)] = self._match_prepared(
-                                queries[i], len(clips[i]), topn=topn,
-                                min_capacity=max(int(clamp[i]), 1))
             query_time = time.time() - t0
 
             out = []

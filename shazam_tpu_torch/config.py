@@ -5,9 +5,12 @@ Each field has the name and default of the same field of
 equal), so that a config file either package writes loads in the other.
 The port does not import that class: ``chip_smoke.py`` drives the port on
 the card and imports nothing of the JAX package, so neither may the port.
-Five fields describe choices the port cannot vary (``FIXED``): they are
+Six fields describe choices the port cannot vary (``FIXED``): they are
 accepted at the JAX package's default and refused at any other value,
-rather than silently ignored.
+rather than silently ignored. So are the values of ``vote_rank`` and
+``escalation_policy`` that name a JAX path the port does not have (the
+pruned rank, bounds-first escalation); each refusal says what the port
+runs instead.
 """
 
 from __future__ import annotations
@@ -16,13 +19,26 @@ import dataclasses
 import json
 from typing import Any
 
-# fields the port takes only at the JAX package's default (no code of the
-# JAX package outside its config reads them either): the full-square peak
-# footprint, the peak sort, the 80-bit key, a per-channel hash capacity and
-# the f32 spectrogram output
+# fields the port takes only at the JAX package's default: the full-square
+# peak footprint, the peak sort, the 80-bit key, a per-channel hash
+# capacity and the f32 spectrogram output (no code of the JAX package
+# outside its config reads them either), and the candidate count of the
+# JAX package's pruned rank, which the port does not have
 FIXED = {"connectivity_mask": 2, "peak_sort": True,
          "fingerprint_reduction": 20, "hash_capacity": 32768,
-         "spectrogram_dtype": "float32"}
+         "rank_candidates": 256, "spectrogram_dtype": "float32"}
+# what the port runs in place of a refused value
+INSTEAD = {
+    "rank_candidates": "the port ranks with the sort or scan rank "
+                       "(vote_rank), which give the pruned rank's answer",
+    "vote_rank": "the port has no pruned rank: 'sort', 'scan', or 'auto' "
+                 "(sort at the fast tier, scan above it) give its answer",
+    "escalation_policy": "the port has one big-index policy, decide-first "
+                         "('auto' or 'decide'): one dispatch at the decide "
+                         "tier, and one more at the tier the exact total "
+                         "fits unless its clamp is provably decided (never "
+                         "decided with decision_escalation off)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +73,11 @@ class FingerprintConfig:
     decision_escalation: bool = True
     # --- big catalogs (past sparse_vote_threshold); every rank and
     # expansion variant gives element-identical results ---
-    # candidate songs of the pruned rank (0: always the sort rank)
+    # candidate songs of the JAX package's pruned rank (FIXED)
     rank_candidates: int = 256
-    # sparse rank: "pruned", "sort", "scan", or "auto" = sort at the fast
-    # tier and scan above it (the JAX package's "auto" is pruned at the
-    # fast tier)
+    # sparse rank: "sort", "scan", or "auto" = sort at the fast tier and
+    # scan above it ("pruned", the JAX package's rank, is refused; its
+    # "auto" is pruned at the fast tier)
     vote_rank: str = "auto"
     # blocked expansion width (0: row by row), used from
     # expand_block_min_capacity on, with a budget of expand_block_runs
@@ -69,12 +85,12 @@ class FingerprintConfig:
     expand_block: int = 128
     expand_block_min_capacity: int = 65536
     expand_block_runs: int = 1024
-    # indexes of at least this many rows take escalation_policy (0: never)
+    # indexes of at least this many rows take decide-first escalation (0:
+    # never): one dispatch at the decide tier, accepted when provably
+    # decided, else one fitted re-dispatch reusing its search bounds
     bounds_probe_min_rows: int = 1 << 25
-    # "decide": one dispatch at the decide tier, accepted when provably
-    # decided, else one fitted re-dispatch reusing its search bounds;
-    # "bounds": an exact-total probe, then one dispatch at the fitting
-    # tier; "auto": "decide" when decision_escalation is True
+    # "auto" or "decide": decide-first, the port's one big-index policy
+    # ("bounds", the JAX package's exact-total probe first, is refused)
     escalation_policy: str = "auto"
     # the decide tier (0: match_capacity); it rises one step after a
     # window of decide_adapt_window dispatches that were mostly undecided
@@ -97,21 +113,22 @@ class FingerprintConfig:
             if getattr(self, name) != default:
                 raise ValueError(
                     f"{name}={getattr(self, name)!r}: the port takes only "
-                    f"the JAX package's default {default!r}")
+                    f"the JAX package's default {default!r}"
+                    + (f"; {INSTEAD[name]}" if name in INSTEAD else ""))
         if self.window_size & (self.window_size - 1):
             raise ValueError("window_size must be a power of two")
         if not (0.0 <= self.overlap_ratio < 1.0):
             raise ValueError("overlap_ratio must be in [0, 1)")
         if self.fan_value < 1:
             raise ValueError("fan_value must be >= 1")
-        if self.vote_rank not in ("auto", "pruned", "sort", "scan"):
-            raise ValueError(
-                f"vote_rank {self.vote_rank!r} not in "
-                "('auto', 'pruned', 'sort', 'scan')")
-        if self.escalation_policy not in ("auto", "decide", "bounds"):
-            raise ValueError(
-                f"escalation_policy {self.escalation_policy!r} not in "
-                "('auto', 'decide', 'bounds')")
+        for name, taken, gone in (
+                ("vote_rank", ("auto", "sort", "scan"), "pruned"),
+                ("escalation_policy", ("auto", "decide"), "bounds")):
+            value = getattr(self, name)
+            if value == gone:
+                raise ValueError(f"{name}={value!r}: {INSTEAD[name]}")
+            if value not in taken:
+                raise ValueError(f"{name} {value!r} not in {taken}")
 
     @property
     def hop(self) -> int:

@@ -1,12 +1,12 @@
 """Batched multi-query matching: many clips against the index in one dispatch.
 
-The port of ``shazam_tpu/match/batched.py`` (``query_totals_batched``,
-``match_queries_batched``, ``match_queries_batched_spanned``). The JAX
-package vmaps the single-query matcher over a (Bq, Q)
-query stack. The port's matcher has no fixed-shape form to vmap, so the
-clip index travels in the data instead (``lookup.expand_stack``,
-``lookup.dense_rank``, ``lookup.sort_rank``), and one dispatch launches
-the same kernels whatever the batch size:
+The port of ``shazam_tpu/match/batched.py`` (``match_queries_batched``,
+``match_queries_batched_spanned``). The JAX package vmaps the
+single-query matcher over a (Bq, Q) query stack. The port's matcher has
+no fixed-shape form to vmap, so the clip index travels in the data
+instead (``lookup.expand_stack``, ``lookup.dense_rank``,
+``lookup.sort_rank``), and one dispatch launches the same kernels
+whatever the batch size:
 
 - one ``lexi_bounds`` over the flattened (Bq * Q) lanes;
 - per clip, the shortest-first run inclusion as cumulative sums along
@@ -20,11 +20,10 @@ the same kernels whatever the batch size:
 
 Every clip's row equals ``lookup.match_by_rank`` on that clip alone at the
 same capacity and expansion, which runs the same code on a stack of one.
-The batch ranks with ``"dense"`` or ``"sort"``; the scan and pruned ranks
-give the same ``RawMatch`` and have no batched form. Against a spanned
-store, ``match_queries_batched_spanned`` expands every span's runs of the
-stack at once (``lookup.expand_spans_stack``) and ranks them with the sort
-rank, or clip by clip with the pruned rank and its certificate.
+The batch ranks with ``"dense"`` or ``"sort"``; the scan rank gives the
+same ``RawMatch`` and has no batched form. Against a spanned store,
+``match_queries_batched_spanned`` expands every span's runs of the stack
+at once (``lookup.expand_spans_stack``) and ranks them with the sort rank.
 """
 
 from __future__ import annotations
@@ -35,8 +34,8 @@ import torch
 from ..index.search import lexi_bounds
 from ..index.store import DeviceIndex
 from ..profiling import spanned
-from .lookup import (RawMatch, _pruned_vote_rank, _is_stacked, check_vote_key,
-                     dense_rank, expand_spans_stack, expand_stack, sort_rank)
+from .lookup import (RawMatch, _is_stacked, check_vote_key, dense_rank,
+                     expand_spans_stack, expand_stack, sort_rank)
 
 
 def _batched_bounds(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid):
@@ -47,34 +46,24 @@ def _batched_bounds(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid):
     return lb.view(shape), ub.view(shape)
 
 
-def query_totals_batched(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid):
-    """Exact per-clip matched-row counts of a (Bq, Q) query stack, and the
-    per-lane bounds for the batch's match to reuse: the batched
-    bounds-first probe. Returns (totals (Bq,), lb, ub (Bq, Q))."""
-    lb, ub = _batched_bounds(index, q_hi, q_lo, q_ex, q_valid)
-    return torch.where(q_valid, ub - lb, 0).sum(1), lb, ub
-
-
 @spanned("match.rank")
 def match_queries_batched(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
                           q_first, *, rank: str, n_songs: int,
                           delta_min: int, delta_range: int,
                           match_capacity: int = 65536, topn: int = 2,
-                          expand_block: int = 0, expand_runs: int = 0,
-                          bounds=None) -> RawMatch:
+                          expand_block: int = 0,
+                          expand_runs: int = 0) -> RawMatch:
     """Match a (Bq, Q) stack of padded queries in one dispatch; returns a
     RawMatch of (Bq, topn) and (Bq,) tensors.
 
     ``rank``: ``"dense"`` (the histogram, row-by-row expansion, as the JAX
     package's batch) or ``"sort"`` (the sparse sort rank; ``expand_block``
-    takes the blocked expansion). ``bounds`` reuses a probe's (Bq, Q)
-    ``(lb, ub)`` (``query_totals_batched``).
+    takes the blocked expansion).
     """
     if rank not in ("dense", "sort"):
         raise ValueError(f"batched rank {rank!r} not in ('dense', 'sort')")
     check_vote_key(n_songs, delta_range)
-    lb, ub = (bounds if bounds is not None
-              else _batched_bounds(index, q_hi, q_lo, q_ex, q_valid))
+    lb, ub = _batched_bounds(index, q_hi, q_lo, q_ex, q_valid)
     blk = expand_block if rank == "sort" else 0
     sid, delta, p, valid, total, n_dropped = expand_stack(
         index, lb, ub, q_t, q_valid, match_capacity=match_capacity,
@@ -93,40 +82,26 @@ def match_queries_batched_spanned(span_arrays, q_hi, q_lo, q_ex, q_t,
                                   match_capacity: int = 65536, topn: int = 2,
                                   offset_stride: int = 0, heads=None,
                                   rank_candidates: int = 0, uviews=None,
-                                  u_steps: int = 0, vote_rank: str = "pruned",
+                                  u_steps: int = 0, vote_rank: str = "sort",
                                   expand_block: int = 0,
                                   expand_runs: int = 0):
     """Match a (Bq, Q) stack against a spanned store's views in one
-    dispatch. Returns (RawMatch of (Bq, ...) tensors, (Bq,) span_max): each
-    clip's clamp signal (its largest per-span count, or its total on the
-    stacked layout's shared budget).
-
-    ``vote_rank="pruned"`` with ``rank_candidates > 0`` ranks each clip
-    with the pruned rank and returns (RawMatch, span_max, oks), ``oks`` the
-    per-clip certificate: as in the JAX package, a clip whose certificate
-    failed has a row that is not exact and must be matched again alone.
-    Any other rank is the sort rank (the scan rank gives the same
-    RawMatch). ``offset_stride``, ``heads``, ``uviews`` and ``u_steps`` are
-    the JAX signature's and ignored."""
+    dispatch, with the sort rank. Returns (RawMatch of (Bq, ...) tensors,
+    (Bq,) span_max): each clip's clamp signal (its largest per-span count,
+    or its total on the stacked layout's shared budget). ``offset_stride``,
+    ``heads``, ``rank_candidates``, ``uviews``, ``u_steps`` and
+    ``vote_rank`` are the JAX signature's and ignored: every rank gives
+    the sort rank's ``RawMatch``."""
     check_vote_key(n_songs, delta_range)
+    blk = expand_block if _is_stacked(span_arrays) else 0
     sid, delta, p, valid, total, span_max, n_dropped = expand_spans_stack(
         span_arrays, q_hi, q_lo, q_ex, q_t, q_valid,
-        match_capacity=match_capacity,
-        expand_block=expand_block if _is_stacked(span_arrays) else 0,
+        match_capacity=match_capacity, expand_block=blk,
         expand_runs=expand_runs)
-    first = q_first.gather(1, p)
-    kw = dict(n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
-              topn=topn)
-    if vote_rank == "pruned" and rank_candidates > 0:
-        rows = [_pruned_vote_rank(sid[i], delta[i], first[i], valid[i],
-                                  total[i], n_dropped[i],
-                                  n_candidates=rank_candidates, **kw)
-                for i in range(sid.shape[0])]
-        raw = RawMatch(*(torch.stack(f) for f in zip(*(r for r, _ in rows))))
-        return raw, span_max, torch.stack([ok for _, ok in rows])
-    blk = expand_block if _is_stacked(span_arrays) else 0
-    raw = sort_rank(sid, delta, first, valid, total, n_dropped,
-                    prefix=match_capacity if blk else 0, **kw)
+    raw = sort_rank(sid, delta, q_first.gather(1, p), valid, total,
+                    n_dropped, n_songs=n_songs, delta_min=delta_min,
+                    delta_range=delta_range, topn=topn,
+                    prefix=match_capacity if blk else 0)
     return raw, span_max
 
 

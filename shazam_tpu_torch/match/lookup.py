@@ -19,10 +19,11 @@ ops that never sync the host:
    - sort: sort the packed (song, delta) keys, run-length count them and
      reduce per song with scatters (``sort_rank``);
    - scan: the same sort, then cumulative scans instead of scatters
-     (``_scan_vote_rank``);
-   - pruned: hashed per-song vote upper bounds pick candidate songs, a
-     dense histogram over those only, and a certificate that selects the
-     sort rank when it cannot prove the result (``match_query_pruned``).
+     (``_scan_vote_rank``).
+
+   (The JAX package's candidate-pruned rank is not ported: eager PyTorch
+   cannot branch on its certificate without a host sync, so it would run
+   the sort rank beside it and always return that rank's answer.)
 
 The expansion and the dense and sort ranks take a (Bq, ...) stack of
 queries, with the query index in the data, so that ``match/batched.py``
@@ -32,9 +33,8 @@ package switches from dense to the others past
 caller picks one by name through ``match_by_rank``.
 
 A spanned store (``index/devmerge.SpannedDeviceStore``) is matched by
-``match_query_sparse_spanned`` / ``match_query_pruned_spanned``: every
-span's runs expand into one vote stream (``expand_spans_stack``), ranked
-as one index's would be.
+``match_query_sparse_spanned``: every span's runs expand into one vote
+stream (``expand_spans_stack``), ranked as one index's would be.
 """
 
 from __future__ import annotations
@@ -50,8 +50,6 @@ from ..profiling import spanned
 
 _SENT = 0x7FFFFFFF     # int32 max: sorts after every packed vote key
 _CLIP_SHIFT = 31       # vote keys are < 2^31 (check_vote_key)
-_M32 = 0xFFFFFFFF
-_FIB = 0x9E3779B1      # Fibonacci multiplicative hash constant
 
 
 def check_vote_key(n_songs: int, delta_range: int) -> None:
@@ -638,167 +636,23 @@ def match_query_sparse(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
     return raw
 
 
-def _pruned_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
-                      n_songs: int, delta_min: int, delta_range: int,
-                      topn: int, n_candidates: int):
-    """Candidate-pruned dense vote rank. Returns (RawMatch, rank_exact).
-
-    1. votes go into a hashed (song, delta) bin table of >= 16x the
-       stream length; collisions only add, so the largest hashed count
-       among a song's rows bounds its true best-bin votes from above;
-    2. the top ``n_candidates`` songs by that bound are kept; an excluded
-       song's votes are at most ``excluded_max``, the largest excluded
-       bound;
-    3. an exact dense (C, delta_range) histogram over the candidates;
-    4. the certificate: ``excluded_max == 0`` (every excluded song has no
-       vote), or strictly below the reported topn-th count and <= the
-       runner, means no excluded song could enter the top-n or change the
-       challenger, so the result equals the sort rank's. Otherwise
-       ``rank_exact`` is False and the result must not be used.
-    """
-    dev = sid.device
-    cap = sid.shape[0]
-    dbin = delta - delta_min
-    vote_ok = valid & (dbin >= 0) & (dbin < delta_range)
-
-    # Fibonacci hash of the uint32 flat key into 2^m buckets, in int64:
-    # the 32-bit product is split in 16-bit halves so nothing overflows
-    m = min(24, max(18, (cap * 16 - 1).bit_length()))
-    flat_key = (sid * delta_range + dbin) & _M32
-    prod = ((flat_key & 0xFFFF) * _FIB
-            + ((((flat_key >> 16) * _FIB) & 0xFFFF) << 16)) & _M32
-    bucket = torch.where(vote_ok, prod >> (32 - m), -1)
-    hashed = _scatter(1 << m, bucket, vote_ok, "sum")
-    row_ub = hashed[torch.clamp(bucket, min=0)]
-    ub_song = _scatter(n_songs, sid, torch.where(vote_ok, row_ub, 0), "amax")
-
-    C = min(n_candidates, n_songs)
-    if n_songs > C:
-        cr, cs = _desc(ub_song)
-        cand_songs = cs[:C]
-        excluded_max = cr[C]
-    else:
-        cand_songs = torch.arange(C, device=dev)
-        excluded_max = _zero(sid)
-
-    slots = torch.arange(C, device=dev)
-    cand_slot = torch.full((n_songs,), C, dtype=torch.int64, device=dev)
-    cand_slot[cand_songs] = slots
-    cslot = cand_slot[torch.clamp(sid, max=n_songs - 1)]
-    live = vote_ok & (cslot < C)
-    flat = torch.where(live, cslot * delta_range + dbin, 0)
-    hist = torch.zeros(C * delta_range, dtype=torch.int64, device=dev)
-    hist.index_add_(0, flat, live.long())
-    hist = hist.view(C, delta_range)
-
-    # candidate results back onto song ids: top-k ties then go to the
-    # smallest song id, not the candidate slot order
-    votes_full = torch.zeros(n_songs, dtype=torch.int64, device=dev)
-    votes_full[cand_songs] = hist.max(dim=1).values
-    best_bin_full = torch.zeros(n_songs, dtype=torch.int64, device=dev)
-    best_bin_full[cand_songs] = torch.argmax(hist, dim=1)
-    rows_hist = _scatter(n_songs, sid, valid & first, "sum")
-
-    k = min(topn, n_songs)
-    vals, order = _desc(votes_full)
-    top_votes, top_songs = vals[:k], order[:k]
-    if k < topn:
-        top_votes = torch.cat([top_votes, top_votes.new_zeros(topn - k)])
-        top_songs = torch.cat([top_songs, top_songs.new_zeros(topn - k)])
-    # zero-vote songs report delta_min (best_bin_full is 0 there)
-    top_deltas = best_bin_full[top_songs] + delta_min
-    row_counts = rows_hist[top_songs]
-    n_ranked = (ub_song > 0).sum()   # > 0 iff the song has an in-range vote
-
-    second_song = vals[1] if n_songs >= 2 else _zero(sid)
-    win = top_songs[0]
-    top_row = _at(hist, torch.clamp(_at(cand_slot, win), max=C - 1))
-    bins = torch.arange(delta_range, device=dev)
-    second_bin = torch.where(bins == _at(best_bin_full, win), -1,
-                             top_row).max()
-    runner = torch.maximum(second_song, second_bin)
-    if n_dropped is None:
-        n_dropped = _zero(sid)
-
-    rank_exact = (excluded_max == 0) | (
-        (excluded_max < top_votes[k - 1]) & (excluded_max <= runner))
-    raw = RawMatch(top_songs, top_deltas, top_votes, row_counts, total,
-                   n_ranked, n_dropped, runner)
-    return raw, rank_exact
-
-
-def match_query_pruned(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
-                       q_first, *, n_songs: int, delta_min: int,
-                       delta_range: int, match_capacity: int = 65536,
-                       topn: int = 2, n_candidates: int = 256,
-                       expand_block: int = 0, expand_runs: int = 0,
-                       bounds=None):
-    """``match_query_sparse`` with the candidate-pruned rank; always
-    element-identical to it. Returns (RawMatch, rank_exact).
-
-    The JAX package picks the pruned result or the sort-rank fallback with
-    ``lax.cond`` inside one program. Eager PyTorch cannot branch on a
-    device value without a host sync, so both ranks run over the same
-    expansion and each field is selected by ``rank_exact`` on the device.
-    """
-    check_vote_key(n_songs, delta_range)
-    sid, delta, p, valid, total, n_dropped = _expand(
-        index, q_hi, q_lo, q_ex, q_t, q_valid, match_capacity=match_capacity,
-        expand_block=expand_block, expand_runs=expand_runs, bounds=bounds)
-    return _pruned_or_sort(
-        sid, delta, _take_first(q_first, p, expand_block), valid, total,
-        n_dropped, n_songs=n_songs, delta_min=delta_min,
-        delta_range=delta_range, topn=topn, n_candidates=n_candidates)
-
-
-def _pruned_or_sort(sid, delta, first, valid, total, n_dropped, *,
-                    n_candidates: int, **kw):
-    """The pruned rank of one vote stream where its certificate holds,
-    else the sort rank, selected field by field on the device. Returns
-    (RawMatch, rank_exact)."""
-    raw_p, ok = _pruned_vote_rank(sid, delta, first, valid, total, n_dropped,
-                                  n_candidates=n_candidates, **kw)
-    raw_s = _sparse_vote_rank(sid, delta, first, valid, total, n_dropped, **kw)
-    return RawMatch(*(torch.where(ok, a, b) for a, b in zip(raw_p, raw_s))), ok
-
-
 @spanned("match.rank")
 def match_by_rank(index: DeviceIndex, q_hi, q_lo, q_ex, q_t, q_valid,
                   q_first, *, rank: str, n_songs: int, delta_min: int,
                   delta_range: int, match_capacity: int = 65536,
-                  topn: int = 2, n_candidates: int = 0,
-                  expand_block: int = 0, expand_runs: int = 0, bounds=None,
-                  with_bounds: bool = False):
+                  topn: int = 2, expand_block: int = 0, expand_runs: int = 0,
+                  bounds=None, with_bounds: bool = False):
     """One match dispatch by rank name, the choice every caller makes:
-    "dense" (the histogram), "pruned" (the candidate-pruned rank when
-    ``n_candidates > 0`` and no bounds are asked back, else the sort rank
-    it always equals), "sort" or "scan". Returns a RawMatch, followed by
-    the search (lb, ub) when ``with_bounds``."""
+    "dense" (the histogram), "sort" or "scan". Returns a RawMatch,
+    followed by the search (lb, ub) when ``with_bounds``."""
     q = (q_hi, q_lo, q_ex, q_t, q_valid, q_first)
     kw = dict(n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
               match_capacity=match_capacity, topn=topn)
     if rank == "dense":
         return match_query(index, *q, **kw)
-    if rank == "pruned" and n_candidates > 0 and not with_bounds:
-        return match_query_pruned(
-            index, *q, n_candidates=n_candidates, expand_block=expand_block,
-            expand_runs=expand_runs, bounds=bounds, **kw)[0]
     return match_query_sparse(
-        index, *q, vote_rank="sort" if rank == "pruned" else rank,
-        expand_block=expand_block, expand_runs=expand_runs, bounds=bounds,
-        with_bounds=with_bounds, **kw)
-
-
-def query_total(index: DeviceIndex, q_hi, q_lo, q_ex, q_valid, *,
-                with_bounds: bool = False):
-    """Exact total matched-row count of a query: one search, no expansion.
-    ``with_bounds=True`` also returns the per-lane (lb, ub) for a later
-    match to reuse as ``bounds``."""
-    lb, ub = lexi_bounds(index, q_hi, q_lo, q_ex, q_valid)
-    total = torch.where(q_valid, ub - lb, 0).sum()
-    if with_bounds:
-        return total, lb, ub
-    return total
+        index, *q, vote_rank=rank, expand_block=expand_block,
+        expand_runs=expand_runs, bounds=bounds, with_bounds=with_bounds, **kw)
 
 
 # ---- spanned stores (index/devmerge.SpannedDeviceStore) ------------------
@@ -888,27 +742,6 @@ def _expand_any_spans(spans, q_hi, q_lo, q_ex, q_t, q_valid, q_first, *,
             n_dropped)
 
 
-def query_total_spanned(spans, q_hi, q_lo, q_ex, q_valid, *, heads=None,
-                        uviews=None, u_steps: int = 0,
-                        with_bounds: bool = False):
-    """``query_total`` over a spanned store: the exact matched-row count
-    summed over the spans, one search and no expansion. ``with_bounds``
-    (stacked layout only) also returns the (n_spans, Q) bounds for a later
-    match to reuse. ``heads``, ``uviews`` and ``u_steps`` are the JAX
-    package's search accelerators, accepted for its signature and
-    ignored: the port's bounds are exact without them."""
-    if not _is_stacked(spans):
-        if with_bounds:
-            raise ValueError("with_bounds needs the stacked layout")
-        return torch.stack([query_total(view, q_hi, q_lo, q_ex, q_valid)
-                            for view in spans]).sum()
-    lb, ub = span_bounds(spans, q_hi, q_lo, q_ex, q_valid)
-    total = torch.where(q_valid, ub - lb, 0).sum()
-    if with_bounds:
-        return total, lb, ub
-    return total
-
-
 def match_query_sparse_spanned(spans, q_hi, q_lo, q_ex, q_t, q_valid,
                                q_first, *, n_songs: int, delta_min: int,
                                delta_range: int, match_capacity: int = 65536,
@@ -948,26 +781,6 @@ def match_query_sparse_spanned(spans, q_hi, q_lo, q_ex, q_t, q_valid,
     if with_bounds:
         return raw, span_max, bounds[0], bounds[1]
     return raw, span_max
-
-
-def match_query_pruned_spanned(spans, q_hi, q_lo, q_ex, q_t, q_valid,
-                               q_first, *, n_songs: int, delta_min: int,
-                               delta_range: int, match_capacity: int = 65536,
-                               topn: int = 2, offset_stride: int = 0,
-                               heads=None, n_candidates: int = 256,
-                               uviews=None, u_steps: int = 0):
-    """``match_query_sparse_spanned`` with the candidate-pruned rank; always
-    element-identical to it (the sort rank where the certificate fails,
-    selected on the device). Returns (RawMatch, span_max, rank_exact)."""
-    check_vote_key(n_songs, delta_range)
-    sid, delta, first, valid, total, span_max, n_dropped = _expand_any_spans(
-        spans, q_hi, q_lo, q_ex, q_t, q_valid, q_first,
-        match_capacity=match_capacity)
-    raw, ok = _pruned_or_sort(
-        sid, delta, first, valid, total, n_dropped, n_songs=n_songs,
-        delta_min=delta_min, delta_range=delta_range, topn=topn,
-        n_candidates=n_candidates)
-    return raw, span_max, ok
 
 
 @spanned("sia.readback")

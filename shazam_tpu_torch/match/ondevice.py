@@ -12,15 +12,14 @@ everything on the device and reads back once:
    first-occurrence masks for unique (hash, offset) pairs and unique
    hashes (the reference's Python-set + mapper,
    ``recognizer.py:237-242,378-382``),
-3. match + vote + rank against the device index: the dense histogram, or
-   past ``sparse_threshold`` vote bins one of the sparse ranks.
+3. match + vote + rank against the device index with the rank the caller
+   names (``match/tiers.rank_for``): the dense histogram, or past
+   ``sparse_vote_threshold`` vote bins the sort or the scan rank.
 
 ``recognize_on_device`` also hands back the fingerprint and the query,
 so that a clip whose answer is not final goes on from them
-(``SIA._rematch``). ``fingerprint_probe_on_device`` runs steps 1-2 and
-the exact-total search instead of step 3, for the bounds-first
-escalation policy;
-``recognize_on_device_spanned`` runs them against a spanned store.
+(``SIA._rematch``); ``recognize_on_device_spanned`` runs the three steps
+against a spanned store.
 """
 
 from __future__ import annotations
@@ -32,8 +31,9 @@ from ..index.store import DeviceIndex
 from ..ops.fingerprint import (Fingerprints, fingerprint_batch,
                                fingerprint_batch_fused)
 from ..profiling import span
-from .lookup import (_expand_any_spans, _is_stacked, _pruned_or_sort,
-                     _rank_by_name, check_vote_key, match_by_rank, query_total)
+from . import tiers
+from .lookup import (_expand_any_spans, _is_stacked, _rank_by_name,
+                     check_vote_key, match_by_rank)
 
 _M32 = 0xFFFFFFFF
 
@@ -95,45 +95,43 @@ def recognize_fingerprints(fp: Fingerprints, index: DeviceIndex, *,
                            query_capacity: int = 4096,
                            rank_candidates: int = 0,
                            sparse_threshold: int = 16_000_000,
-                           vote_rank: str = "pruned", expand_block: int = 0,
+                           vote_rank: str = "sort", expand_block: int = 0,
                            expand_runs: int = 0):
     """Dedup + match of one clip's fingerprints (one row a channel).
 
     Past ``sparse_threshold`` vote bins, ``vote_rank`` picks the sparse
-    rank: "pruned" (when ``rank_candidates > 0``; "sort" otherwise),
-    "sort" or "scan". Returns (RawMatch, n_pairs, n_peaks,
+    rank: "sort" or "scan". ``rank_candidates`` is the JAX signature's
+    (its pruned rank's) and ignored. Returns (RawMatch, n_pairs, n_peaks,
     n_hashes_total), all tensors on the device, ``n_peaks`` the largest
     of the rows'. The caller checks n_hashes_total against
     query_capacity and n_peaks against the peak capacity.
     """
+    sparse = tiers.is_sparse(n_songs, delta_range, sparse_threshold)
     return _match_fingerprints(
         fp, index, n_songs=n_songs, delta_min=delta_min,
         delta_range=delta_range, match_capacity=match_capacity, topn=topn,
-        query_capacity=query_capacity, rank_candidates=rank_candidates,
-        sparse_threshold=sparse_threshold, vote_rank=vote_rank,
-        expand_block=expand_block, expand_runs=expand_runs)[:4]
+        query_capacity=query_capacity,
+        rank=vote_rank if sparse else "dense", expand_block=expand_block,
+        expand_runs=expand_runs)[:4]
 
 
 def _match_fingerprints(fp: Fingerprints, index: DeviceIndex, *,
                         n_songs: int, delta_min: int, delta_range: int,
                         match_capacity: int, topn: int, query_capacity: int,
-                        rank_candidates: int, sparse_threshold: int,
-                        vote_rank: str, expand_block: int, expand_runs: int,
+                        rank: str, expand_block: int, expand_runs: int,
                         with_bounds: bool = False):
-    """``recognize_fingerprints``, also returning the deduped query
-    ``q = (sort_hi, lo, ex, t1, q_valid, q_first)`` and, ``with_bounds``
-    (a sparse rank), the match's search (lb, ub), else None."""
+    """``recognize_fingerprints`` by rank name, also returning the deduped
+    query ``q = (sort_hi, lo, ex, t1, q_valid, q_first)`` and,
+    ``with_bounds`` (a sparse rank), the match's search (lb, ub), else
+    None."""
     (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
      n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
     q = (sort_hi, lo, ex, t1, q_valid, q_first)
     out = match_by_rank(
-        index, *q,
-        rank=("dense" if n_songs * delta_range <= sparse_threshold
-              else vote_rank),
-        n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
-        match_capacity=match_capacity, topn=topn,
-        n_candidates=rank_candidates, expand_block=expand_block,
-        expand_runs=expand_runs, with_bounds=with_bounds)
+        index, *q, rank=rank, n_songs=n_songs, delta_min=delta_min,
+        delta_range=delta_range, match_capacity=match_capacity, topn=topn,
+        expand_block=expand_block, expand_runs=expand_runs,
+        with_bounds=with_bounds)
     raw, bounds = (out[0], out[1:]) if with_bounds else (out, None)
     return raw, n_pairs, fp.n_peaks.max(), n_hashes_total, q, bounds
 
@@ -167,16 +165,16 @@ def recognize_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
                         use_fused: bool = True, n_songs: int,
                         delta_min: int, delta_range: int,
                         match_capacity: int = 16384, topn: int = 2,
-                        query_capacity: int = 4096, rank_candidates: int = 0,
-                        sparse_threshold: int = 16_000_000,
-                        vote_rank: str = "pruned", expand_block: int = 0,
-                        expand_runs: int = 0, with_bounds: bool = False):
+                        query_capacity: int = 4096, rank: str = "dense",
+                        expand_block: int = 0, expand_runs: int = 0,
+                        with_bounds: bool = False):
     """(C, N) f32 clip, (C,) valid lengths -> (RawMatch, n_pairs, n_peaks,
-    n_hashes_total, fp, q, bounds) on the device; nothing is read back
+    n_hashes_total, fp, q, bounds) on the device, matched with the rank
+    named ``rank`` ("dense", "sort" or "scan"); nothing is read back
     here. Beside the answer it returns what the pass built, for a caller
-    that goes on from it: the fingerprint ``fp``, the deduped query ``q``
-    (as ``fingerprint_probe_on_device`` returns it) and, ``with_bounds``
-    (a sparse rank), the match's search (lb, ub), else None.
+    that goes on from it: the fingerprint ``fp``, the deduped query ``q
+    = (sort_hi, lo, ex, t1, q_valid, q_first)`` and, ``with_bounds`` (a
+    sparse rank), the match's search (lb, ub), else None.
     ``use_fused=False`` fingerprints with the plain ``fingerprint_batch``,
     for configurations outside the kernels' contract."""
     fp = _fingerprint_clip(
@@ -186,39 +184,9 @@ def recognize_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
     raw, n_pairs, n_peaks, n_hashes_total, q, bounds = _match_fingerprints(
         fp, index, n_songs=n_songs, delta_min=delta_min,
         delta_range=delta_range, match_capacity=match_capacity, topn=topn,
-        query_capacity=query_capacity, rank_candidates=rank_candidates,
-        sparse_threshold=sparse_threshold, vote_rank=vote_rank,
-        expand_block=expand_block, expand_runs=expand_runs,
-        with_bounds=with_bounds)
+        query_capacity=query_capacity, rank=rank, expand_block=expand_block,
+        expand_runs=expand_runs, with_bounds=with_bounds)
     return raw, n_pairs, n_peaks, n_hashes_total, fp, q, bounds
-
-
-def fingerprint_probe_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
-                                index: DeviceIndex, *, fs: int = 44100,
-                                wsize: int = 4096, hop: int = 2048,
-                                amp_min: float = 10.0, radius: int = 10,
-                                fan_value: int = 5, min_dt: int = 0,
-                                max_dt: int = 200, peak_capacity: int = 4096,
-                                use_fused: bool = True,
-                                query_capacity: int = 4096):
-    """Fingerprint + dedup + the exact-total search, the query kept on the
-    device.
-
-    Returns (q, n_pairs, n_peaks, n_hashes_total, total, lb, ub) with
-    ``q = (sort_hi, lo, ex, t1, q_valid, q_first)``: the caller reads the
-    total, picks the capacity tier it fits and matches ``q`` once there,
-    passing (lb, ub) back as ``bounds`` so the search does not run twice.
-    """
-    fp = _fingerprint_clip(
-        samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
-        radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
-        peak_capacity=peak_capacity, use_fused=use_fused)
-    (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
-     n_hashes_total) = _fingerprint_dedup(fp, query_capacity)
-    total, lb, ub = query_total(index, sort_hi, lo, ex, q_valid,
-                                with_bounds=True)
-    return ((sort_hi, lo, ex, t1, q_valid, q_first), n_pairs,
-            fp.n_peaks.max(), n_hashes_total, total, lb, ub)
 
 
 def recognize_on_device_spanned(samples: torch.Tensor, n_valid: torch.Tensor,
@@ -233,16 +201,16 @@ def recognize_on_device_spanned(samples: torch.Tensor, n_valid: torch.Tensor,
                                 use_fused: bool = True,
                                 query_capacity: int = 4096, heads=None,
                                 rank_candidates: int = 0, uviews=None,
-                                u_steps: int = 0, vote_rank: str = "pruned",
+                                u_steps: int = 0, vote_rank: str = "sort",
                                 expand_block: int = 0, expand_runs: int = 0):
     """``recognize_on_device`` against a spanned store's views
     (``SpannedDeviceStore.query_cols()``): fingerprint and dedup as there,
-    then every span's expansion and one sparse rank
+    then every span's expansion and one sparse rank, "sort" or "scan"
     (``lookup.match_query_sparse_spanned``'s). Returns (RawMatch,
     span_max, n_pairs, n_peaks, n_hashes_total) on the device; the caller
     holds ``span_max`` against ``match_capacity``. ``offset_stride``,
-    ``heads``, ``uviews`` and ``u_steps`` are the JAX signature's and
-    ignored."""
+    ``heads``, ``rank_candidates``, ``uviews`` and ``u_steps`` are the JAX
+    signature's and ignored."""
     # the ranks below take no guard of their own
     check_vote_key(n_songs, delta_range)
     fp = _fingerprint_clip(
@@ -255,14 +223,9 @@ def recognize_on_device_spanned(samples: torch.Tensor, n_valid: torch.Tensor,
         span_arrays, sort_hi, lo, ex, t1, q_valid, q_first,
         match_capacity=match_capacity, expand_block=expand_block,
         expand_runs=expand_runs)
-    kw = dict(n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
-              topn=topn)
-    if vote_rank == "pruned" and rank_candidates > 0:
-        raw, _ok = _pruned_or_sort(sid, delta, first, valid, total, n_dropped,
-                                   n_candidates=rank_candidates, **kw)
-    else:
-        blocked = expand_block and _is_stacked(span_arrays)
-        raw = _rank_by_name(vote_rank if vote_rank != "pruned" else "sort")(
-            sid, delta, first, valid, total, n_dropped,
-            prefix=match_capacity if blocked else 0, **kw)
+    blocked = expand_block and _is_stacked(span_arrays)
+    raw = _rank_by_name(vote_rank)(
+        sid, delta, first, valid, total, n_dropped, n_songs=n_songs,
+        delta_min=delta_min, delta_range=delta_range, topn=topn,
+        prefix=match_capacity if blocked else 0)
     return raw, span_max, n_pairs, fp.n_peaks.max(), n_hashes_total

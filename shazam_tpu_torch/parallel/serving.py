@@ -36,6 +36,7 @@ import torch.distributed as dist
 from ..config import DEFAULT_CONFIG, FingerprintConfig
 from ..index.devmerge import packed_stride_for
 from ..match.align import MatchResult, align_results
+from ..match import tiers
 from ..match.lookup import raw_to_host
 from ..match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
 from . import bigcatalog, sharded
@@ -145,13 +146,10 @@ class ShardedCatalog:
             # shard under its own cap is exact, not an overflow
             if total <= self._effective_cap(cap) or cap >= cap_max:
                 break
-            if (self.config.decision_escalation
-                    and int(raw.top_votes[0]) - int(raw.runner_votes)
-                    > int(raw.n_dropped)):
-                # provably-exact early accept (SIA._decided). Key-range
-                # ranks the summed histogram, so runner_votes is sound;
-                # the by-song regime reports a zero margin and always
-                # escalates.
+            if tiers.decided(raw, self.config):
+                # provably-exact early accept. Key-range ranks the summed
+                # histogram, so runner_votes is sound; the by-song regime
+                # reports a zero margin and always escalates.
                 return align_results(
                     raw, q.n_pairs, catalog=self.catalog,
                     config=self.config,

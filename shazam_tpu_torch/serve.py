@@ -531,17 +531,10 @@ def _make_handler(batcher: MicroBatcher, sia, timeout_s: float,
             elif path == "/stats":
                 catalog = getattr(sia, "catalog", None)
                 counts = catalog.counts() if catalog is not None else {}
-                extra = {}
-                if getattr(sia, "_decide_boost", 0):
-                    # the self-tuning decide tier raised itself (see
-                    # config.decide_adapt_window) — surface it so an
-                    # operator can pin it across restarts
-                    extra["decide_boost"] = sia._decide_boost
-                    try:
-                        extra["decide_tier"] = sia._decide_cap(
-                            sia._match_tiers())
-                    except Exception:  # noqa: BLE001 — observability only
-                        pass
+                # the self-tuning decide tier, once it raised itself (see
+                # config.decide_adapt_window), for an operator to pin
+                decide = getattr(sia, "decide", None)
+                extra = decide.stats(sia.config) if decide is not None else {}
                 self._json(200, {**counts, **batcher.stats, **extra,
                                  "latency": batcher.latency_summary(),
                                  "index_hashes": sia._live_n_hashes()})

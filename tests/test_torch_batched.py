@@ -6,10 +6,11 @@ Mirrors ``tests/test_batched.py`` (less the spanned, head and apriori
 cases, which have no port yet) on a 10 x 8 s seeded corpus with 4 s
 clips: batch == single, empty, pad_to_pow2, per-clip escalation with a
 tiny ``match_capacity``, the whole-batch re-dispatch when most clips
-clamp, sparse == dense, a capacity override, and the decided-first and
-bounds-first policies on a "big" index (``bounds_probe_min_rows=1``).
-Each case compares every clip's song, offset, total matches and input
-hashes with both references.
+clamp, sparse == dense, a capacity override, and on a "big" index
+(``bounds_probe_min_rows=1``) the decided-first policy, with and without
+an accepted clamp (the latter against the JAX package's bounds-first
+batch). Each case compares every clip's song, offset, total matches and
+input hashes with both references.
 """
 
 import dataclasses
@@ -21,6 +22,7 @@ import torch
 from shazam_tpu_torch.api import SIA
 from shazam_tpu_torch.audio import synth_song
 from shazam_tpu_torch.config import FingerprintConfig
+from shazam_tpu_torch.match.tiers import match_tiers
 
 FS = 44100
 N_SONGS, SONG_S, CLIP_S = 10, 8.0, 4.0
@@ -166,6 +168,21 @@ def _counting(monkeypatch, port):
     return calls
 
 
+def _batch_caps(monkeypatch):
+    """The capacity of every batched dispatch the api makes."""
+    from shazam_tpu_torch import api
+
+    caps = []
+    real = api.match_queries_batched
+
+    def spy(*a, **kw):
+        caps.append(kw["match_capacity"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(api, "match_queries_batched", spy)
+    return caps
+
+
 def test_batched_base_tier_is_match_capacity(engines, monkeypatch):
     """The batch starts at match_capacity, as the JAX batch does, not at
     the solo ladder's fast tier: clips whose totals lie between the two
@@ -238,6 +255,7 @@ def test_batched_sparse_equals_dense(expand_block, cap):
     import jax.numpy as jnp
 
     from shazam_tpu.match.batched import match_queries_batched as jmqb
+    from shazam_tpu.match.batched import query_totals_batched as jqtb
     from shazam_tpu_torch.index import store
     from shazam_tpu_torch.match import batched, lookup
 
@@ -267,16 +285,20 @@ def test_batched_sparse_equals_dense(expand_block, cap):
     if not expand_block:
         for a, b in zip(sparse, dense):
             assert np.array_equal(np.asarray(a), np.asarray(b))
+    stride = 512
+    jcols = tuple(jnp.asarray(a) for a in (hi, lo, ex))
+    jcols += (jnp.asarray(sid * np.uint32(stride) + off),)
     if cap == 16384 and not expand_block:   # no clamp, no run budget
-        stride = 512
-        jcols = tuple(jnp.asarray(a) for a in (hi, lo, ex))
-        jcols += (jnp.asarray(sid * np.uint32(stride) + off),)
         want = jmqb(jcols, *(jnp.asarray(a) for a in q_np), sparse=True,
                     offset_stride=stride, **kw)
         for a, b in zip(sparse, want):
             assert np.array_equal(np.asarray(a), np.asarray(b))
-    totals, lb, ub = batched.query_totals_batched(dev, q[0], q[1], q[2], q[4])
-    assert np.array_equal(totals.numpy(), sparse.total_rows.numpy())
+    # each clip's total_rows is its exact total, clamped or not: the JAX
+    # package's batched probe
+    totals, lb, _ub = jqtb(jcols, *(jnp.asarray(q_np[i]) for i in (0, 1, 2,
+                                                                   4)))
+    assert np.array_equal(np.asarray(totals), sparse.total_rows.numpy())
+    assert np.array_equal(np.asarray(totals), dense.total_rows.numpy())
     assert lb.shape == (Bq, Q)
 
 
@@ -295,23 +317,30 @@ def test_batched_capacity_override_identical(engines):
 
 @pytest.mark.parametrize("policy", ["decide", "bounds"])
 @pytest.mark.parametrize("tiers", ["default", "tight"])
-def test_batched_big_index_policies(engines, policy, tiers):
-    """Decided-first and bounds-first on a 'big' index (every index is,
-    at bounds_probe_min_rows=1; sparse ranks from 0 vote bins): every clip
-    answers as recognize_samples and the JAX batch do; tight tiers make
-    the clips clamp, be decided or escalate."""
+def test_batched_big_index_policies(engines, monkeypatch, policy, tiers):
+    """Decided-first on a 'big' index (every index is, at
+    bounds_probe_min_rows=1; sparse ranks from 0 vote bins), its first
+    batch dispatch at the decide tier: every clip answers as
+    recognize_samples and the JAX batch do, and with no clamp accepted
+    (the port's path in place of bounds-first) as the JAX package's
+    bounds-first batch; tight tiers make the clips clamp, be decided or
+    escalate."""
     port, ref = engines
     kw = dict(bounds_probe_min_rows=1, sparse_vote_threshold=0,
               escalation_policy=policy)
     if tiers == "tight":
         kw.update(match_capacity=128, match_capacity_fast=64,
                   match_capacity_max=1 << 16)
+    port_kw = dict(kw, escalation_policy="auto",
+                   decision_escalation=policy == "decide")
     base_p, base_r = port.config, ref.config
     try:
-        port.config = dataclasses.replace(base_p, **kw)
+        port.config = dataclasses.replace(base_p, **port_kw)
         ref.config = dataclasses.replace(base_r, **kw)
-        pb = port.prepare_batch(_clips(range(4), shift=1))
-        assert (pb.probe_totals is not None) == (policy == "bounds")
+        decide_cap = port.decide.cap(port.config,
+                                     match_tiers(port.config))
+        caps = _batch_caps(monkeypatch)
         _check(port, ref, _clips(range(4), shift=1))
+        assert caps[0] == decide_cap
     finally:
         port.config, ref.config = base_p, base_r

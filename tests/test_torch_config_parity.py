@@ -138,3 +138,34 @@ def test_custom_config_end_to_end_recognition():
         top = out["results"][0]
         assert top["song_name"] == "s2" == want["song_name"]
         assert top["offset"] == want["offset"]
+
+
+@pytest.mark.parametrize("field,value,instead", [
+    ("escalation_policy", "bounds", "one big-index policy, decide-first"),
+    ("vote_rank", "pruned", "no pruned rank: 'sort', 'scan', or 'auto'"),
+    ("rank_candidates", 2, "ranks with the sort or scan rank"),
+    ("rank_candidates", 0, "ranks with the sort or scan rank"),
+])
+def test_config_refuses_a_deleted_path(field, value, instead):
+    """A value that names a JAX path the port does not have (its
+    bounds-first escalation, its pruned rank and that rank's candidate
+    count) is refused, in a config and in a JAX config file, with what the
+    port runs instead; the JAX package takes it."""
+    import re
+
+    from shazam_tpu.config import FingerprintConfig as JaxConfig
+
+    jax_cfg = JaxConfig(**{field: value})
+    for make in (lambda: FingerprintConfig(**{field: value}),
+                 lambda: FingerprintConfig.from_json(jax_cfg.to_json())):
+        with pytest.raises(ValueError, match=re.escape(instead)):
+            make()
+
+
+@pytest.mark.parametrize("field,values", [
+    ("escalation_policy", ("auto", "decide")),
+    ("vote_rank", ("auto", "sort", "scan")),
+])
+def test_config_takes_the_kept_paths(field, values):
+    for value in values:
+        assert getattr(FingerprintConfig(**{field: value}), field) == value

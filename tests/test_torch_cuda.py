@@ -436,7 +436,7 @@ def test_sia_on_cuda_matches_cpu(cuda):
 @pytest.mark.parametrize("cfg", [
     {},                                               # dense histogram
     {"sparse_vote_threshold": 0},                     # sort rank
-    {"sparse_vote_threshold": 0, "vote_rank": "pruned"},  # pruned rank
+    {"sparse_vote_threshold": 0, "vote_rank": "scan"},  # scan, row by row
     {"sparse_vote_threshold": 0, "vote_rank": "scan", "expand_block": 128,
      "expand_block_min_capacity": 0},                 # scan, blocked
     {"sparse_vote_threshold": 0, "bounds_probe_min_rows": 1},  # decided-first

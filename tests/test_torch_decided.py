@@ -1,5 +1,5 @@
 """Port parity, the provably-exact early accept and the big-index
-escalation ladder (decided-first and bounds-first).
+escalation ladder (decided-first).
 
 Mirrors ``tests/test_decided.py`` on the port and holds each result
 against the JAX package's on the same inputs:
@@ -10,9 +10,10 @@ against the JAX package's on the same inputs:
   top-1 song and delta (randomized);
 - the api accepts decided clamps in one dispatch, escalates undecided
   ones, and with decision_escalation off always escalates;
-- decided-first answers like bounds-first without the probe, and when
-  forced to escalate gives the bounds-first dict exactly;
-- the self-tuning decide tier.
+- decided-first answers as the JAX package's; with no clamp accepted
+  (the port's path in place of the JAX package's bounds-first) it gives
+  the JAX bounds-first dict exactly, probe or not;
+- the self-tuning decide tier (``match/tiers.DecideTier``).
 """
 
 import jax
@@ -26,6 +27,7 @@ from shazam_tpu_torch.api import SIA
 from shazam_tpu_torch.audio import synth_song
 from shazam_tpu_torch.config import FingerprintConfig
 from shazam_tpu_torch.match import lookup as tl
+from shazam_tpu_torch.match import tiers
 
 TIMING = ("fingerprint_time", "query_time", "align_time", "total_time")
 # tiers 64, 128, 512, ...: a 5 s clip's 100-250 rows clamp both the fast
@@ -156,12 +158,14 @@ def _strip(res):
     return {k: v for k, v in res.items() if k not in TIMING}
 
 
-def _pair(corpus, **cfg):
-    """The port's and the JAX package's SIA on one config and corpus."""
+def _pair(corpus, port_cfg=None, **cfg):
+    """The port's and the JAX package's SIA on one config (the port's on
+    ``port_cfg`` where the JAX config names a path the port does not
+    have) and corpus."""
     from shazam_tpu.api import SIA as JaxSIA
     from shazam_tpu.config import FingerprintConfig as JaxConfig
 
-    port = SIA(config=FingerprintConfig(**cfg), device="cpu")
+    port = SIA(config=FingerprintConfig(**(port_cfg or cfg)), device="cpu")
     ref = JaxSIA(config=JaxConfig(**cfg))
     for sia in (port, ref):
         sia.ingest_arrays(corpus)
@@ -174,7 +178,10 @@ def engines(corpus):
         "decided": _pair(corpus, **TIGHT),
         "exact": _pair(corpus, **TIGHT, decision_escalation=False),
         "auto": _pair(corpus, **BIG),
-        "bounds": _pair(corpus, **BIG, escalation_policy="bounds"),
+        # the JAX package's bounds-first, the port's decide-first with no
+        # clamp accepted
+        "bounds": _pair(corpus, dict(BIG, decision_escalation=False), **BIG,
+                        escalation_policy="bounds"),
     }
 
 
@@ -230,14 +237,19 @@ def test_exact_mode_still_escalates(engines, corpus, monkeypatch, song):
 @pytest.mark.parametrize("song", [1, 3, 5])
 def test_decide_first_matches_bounds_policy(engines, corpus, monkeypatch,
                                             song):
+    """Decided-first dispatches first at the decide tier (128) and answers
+    as the JAX package's; with no clamp accepted it answers as the JAX
+    bounds-first policy, which probes the exact total first."""
     dec, ref = engines["auto"]
     bnd, jbnd = engines["bounds"]
     clip = corpus[song][1][44100: 44100 * 5]
-    calls = _count_calls(monkeypatch, "query_total")
+    calls = _count_calls(monkeypatch, "match_by_rank")
     a = dec.recognize_samples([clip], topn=2)
-    assert not calls, "decided-first must not run the bounds probe"
+    assert calls[0][2] == 128
+    calls.clear()
     b = bnd.recognize_samples([clip], topn=2)
-    assert calls, "bounds-first must probe on a big index"
+    assert calls[0][2] == 128
+    assert len(calls) == (1 if b["total_matches"] <= 128 else 2)
     assert _strip(a) == _strip(ref.recognize_samples([clip], topn=2))
     assert _strip(b) == _strip(jbnd.recognize_samples([clip], topn=2))
     assert a["results"][0]["song_name"] == f"s{song}"
@@ -253,10 +265,10 @@ def test_forced_escalation_equals_bounds_policy(engines, corpus, monkeypatch,
     dec = SIA(config=FingerprintConfig(**BIG, escalation_policy="decide"),
               device="cpu")
     dec.ingest_arrays(corpus)
-    monkeypatch.setattr(SIA, "_decided", lambda self, raw: False)
+    monkeypatch.setattr(tiers, "decided", lambda raw, config: False)
     bnd, jbnd = engines["bounds"]
     clip = corpus[song][1][44100: 44100 * 5]
-    calls = _count_calls(monkeypatch, "match_by_rank", "query_total")
+    calls = _count_calls(monkeypatch, "match_by_rank")
     got = _strip(dec.recognize_samples([clip], topn=2))
     assert [c[:2] for c in calls] == [("match_by_rank", "scan")] * len(calls)
     assert got == _strip(bnd.recognize_samples([clip], topn=2))
@@ -286,38 +298,50 @@ def test_decide_tier_self_tuning(engines, corpus, monkeypatch):
     cfg = dict(BIG, decide_adapt_window=4, decide_adapt_max=1 << 14)
     sia = SIA(config=FingerprintConfig(**cfg), device="cpu")
     ref = JaxSIA(config=JaxConfig(**cfg))
-    caps = sia._match_tiers()
-    assert caps == ref._match_tiers() and sia._decide_cap(caps) == 128
+    tier, conf = sia.decide, sia.config
+    caps = tiers.match_tiers(conf)
+    assert caps == ref._match_tiers() and tier.cap(conf, caps) == 128
+    assert tier.stats(conf) == {}
     for a, u, boost in [(4, 3, 1), (4, 0, 1)] + [(4, 4, None)] * 10:
-        for s in (sia, ref):
-            s._decide_record(a, u)
-        assert sia._decide_boost == ref._decide_boost
-        assert boost is None or sia._decide_boost == boost
-        assert sia._decide_cap(caps) == ref._decide_cap(caps) <= 1 << 14
-    assert sia._decide_boost == 11 and sia._decide_stats == [0, 0]
+        tier.record(conf, a, u)
+        ref._decide_record(a, u)
+        assert tier.state()[1] == ref._decide_boost
+        assert boost is None or tier.state()[1] == boost
+        assert tier.cap(conf, caps) == ref._decide_cap(caps) <= 1 << 14
+    assert tier.state() == ((0, 0), 11)
+    assert tier.stats(conf) == {"decide_boost": 11,
+                                "decide_tier": tier.cap(conf, caps)}
 
     # recognition records, and still answers, while boosted: the boosted
     # tier (8192) holds the whole clip, so the dispatch counts as decided
     # even with the certificate forced off
     sia.ingest_arrays(corpus)
-    monkeypatch.setattr(SIA, "_decided", lambda self, raw: False)
+    monkeypatch.setattr(tiers, "decided", lambda raw, config: False)
     out = sia.recognize_samples([corpus[1][1][44100: 44100 * 5]])
     assert out["results"][0]["song_name"] == "s1"
-    assert sia._decide_cap(caps) == 8192 and sia._decide_stats == [1, 0]
+    assert tier.cap(conf, caps) == 8192 and tier.state() == ((1, 0), 11)
 
     off = SIA(config=FingerprintConfig(**dict(cfg, decide_adapt_window=0)),
               device="cpu")
-    off._decide_record(8, 8)
-    assert off._decide_boost == 0
+    off.decide.record(off.config, 8, 8)
+    assert off.decide.state() == ((0, 0), 0)
 
 
 @pytest.mark.parametrize("vote_rank,fast,above", [
-    ("auto", "sort", "scan"), ("pruned", "pruned", "pruned"),
+    ("auto", "sort", "scan"), ("pruned", "refused", "refused"),
     ("sort", "sort", "sort"), ("scan", "scan", "scan")])
 def test_rank_for_each_tier(vote_rank, fast, above):
     """The port's "auto" is the sort rank at the fast tier (the JAX
     package's is pruned, which gives the same answer) and scan above it;
-    a named rank holds at every tier."""
-    sia = SIA(config=FingerprintConfig(**TIGHT, vote_rank=vote_rank),
-              device="cpu")
-    assert (sia._rank_for(64), sia._rank_for(128)) == (fast, above)
+    a named rank holds at every tier, and under the sparse threshold the
+    dense histogram at every tier. The JAX package's "pruned" is refused,
+    naming the ranks the port runs instead."""
+    if fast == "refused":
+        with pytest.raises(ValueError, match="no pruned rank.*'sort'"):
+            FingerprintConfig(**TIGHT, vote_rank=vote_rank)
+        return
+    cfg = FingerprintConfig(**TIGHT, vote_rank=vote_rank)
+    assert [tiers.rank_for(cfg, cap, True) for cap in (64, 128)] \
+        == [fast, above]
+    assert {tiers.rank_for(cfg, cap, False) for cap in (64, 128)} \
+        == {"dense"}

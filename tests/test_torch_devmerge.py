@@ -309,6 +309,7 @@ def test_reserved_capacity_does_not_change_the_match_policy():
 
     from shazam_tpu_torch.api import SIA
     from shazam_tpu_torch.config import FingerprintConfig
+    from shazam_tpu_torch.match import tiers
 
     cfg = dataclasses.replace(FingerprintConfig(), sparse_vote_threshold=0,
                               bounds_probe_min_rows=1 << 16)
@@ -320,7 +321,7 @@ def test_reserved_capacity_does_not_change_the_match_policy():
         sia.ingest_arrays(songs)
     view = dev._ensure_device_index()
     assert view.n_rows < 1 << 16 <= view.payload.shape[0]
-    assert not dev._big_index(view)
+    assert not tiers.big_index(cfg, view)
     clip = np.asarray(songs[1][1])[20_000: 20_000 + 2 * 44100]
     a, b = (s.recognize_clip(clip) for s in (host, dev))
     assert a["results"] == b["results"] and a["results"][0]["song_name"] == "s1"

@@ -25,6 +25,7 @@ import torch
 
 from shazam_tpu_torch.api import SIA as PortSIA
 from shazam_tpu_torch.audio import synth_song
+from shazam_tpu_torch.match.tiers import match_tiers
 from shazam_tpu_torch.serve import RecognitionServer
 
 N_SONGS = 5
@@ -776,7 +777,7 @@ def test_pinned_tier_server_matches_unpinned(server):
     default server (per-clip escalation still covers clips whose totals
     exceed the pin)."""
     sia = server.sia
-    pin = sia._match_tiers()[0]
+    pin = match_tiers(sia.config)[0]
     srv = RecognitionServer(sia, port=0, max_batch=4, max_wait_ms=5.0,
                             pin_capacity=pin)
     assert srv.batcher.pin_capacity == pin

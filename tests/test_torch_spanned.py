@@ -350,8 +350,9 @@ def _build_spanned(cfg, songs):
 
 
 def test_spanned_bounds_first_and_blocked_match_default():
-    """``test_spanned.py:824``: on a spanned SIA the bounds-first policy
-    and the blocked expansion answer as the default path, as in JAX."""
+    """``test_spanned.py:824``: on a spanned SIA counted as big, the
+    big-index policy (decided-first, where the JAX package's test runs
+    bounds-first) and the blocked expansion answer as the default path."""
     songs = _songs(6)
     base = _build_spanned(FingerprintConfig(), songs)
     probed = _build_spanned(FingerprintConfig(bounds_probe_min_rows=1,
@@ -368,8 +369,10 @@ def test_spanned_bounds_first_and_blocked_match_default():
 
 
 def test_spanned_decide_first_policy_matches_bounds():
-    """``test_spanned.py:865``: decided-first and bounds-first agree on
-    the top-1 song and offset on a spanned SIA, as in JAX."""
+    """``test_spanned.py:865``: decided-first, with and without an
+    accepted clamp (the port's path in place of bounds-first), agrees with
+    JAX's decided-first and bounds-first on the top-1 song and offset on a
+    spanned SIA."""
     cfg = FingerprintConfig(match_capacity=1024, match_capacity_fast=256,
                             match_capacity_max=1 << 16,
                             bounds_probe_min_rows=1, sparse_vote_threshold=0)
@@ -380,14 +383,19 @@ def test_spanned_decide_first_policy_matches_bounds():
     for sid in (2, 5):
         clip = _clip(songs, sid, secs=3.0)
         a = sia.recognize_samples([clip], topn=2)
-        sia.config = dataclasses.replace(cfg, escalation_policy="bounds")
+        sia.config = dataclasses.replace(cfg, decision_escalation=False)
         b = sia.recognize_samples([clip], topn=2)
         sia.config = cfg
         r = ref.recognize_samples([clip], topn=2)
+        ref.config = dataclasses.replace(ref.config,
+                                         escalation_policy="bounds")
+        rb = ref.recognize_samples([clip], topn=2)
+        ref.config = dataclasses.replace(ref.config,
+                                         escalation_policy="auto")
         assert a["results"][0]["song_name"] == f"s{sid}"
         for key in ("song_name", "offset"):
             assert a["results"][0][key] == b["results"][0][key] \
-                == r["results"][0][key]
+                == r["results"][0][key] == rb["results"][0][key]
 
 
 # ---- span-wise files across the packages --------------------------------------

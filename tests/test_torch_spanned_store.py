@@ -22,10 +22,8 @@ from shazam_tpu_torch.index.devmerge import SENTINEL, SpannedDeviceStore
 from shazam_tpu_torch.index.store import DeviceIndex as View
 from shazam_tpu_torch.index.store import build_index, search_keys
 from shazam_tpu_torch.match.batched import match_queries_batched_spanned
-from shazam_tpu_torch.match.lookup import (match_query_pruned_spanned,
-                                           match_query_sparse,
-                                           match_query_sparse_spanned,
-                                           query_total_spanned)
+from shazam_tpu_torch.match.lookup import (match_query_sparse,
+                                           match_query_sparse_spanned)
 from shazam_tpu_torch.match.ondevice import recognize_on_device_spanned
 
 COLS = ("key_hi", "key_lo", "key_ex", "song_id", "offset")
@@ -203,6 +201,7 @@ def test_spanned_matcher_equals_flat(n_spans):
     match as the flat index, and as JAX's per-span matcher field for field,
     ``span_max`` included."""
     from shazam_tpu.index.search import maybe_build_head
+    from shazam_tpu.match.lookup import query_total_spanned
     from shazam_tpu.match.lookup import \
         match_query_sparse_spanned as jax_spanned
 
@@ -223,14 +222,17 @@ def test_spanned_matcher_equals_flat(n_spans):
     flat = _port_view(rows[0], rows[1], rows[2],
                       rows[3] * np.uint32(stride) + rows[4], stride)
     _assert_raw_equal(got, match_query_sparse(flat, *pq, **kw), "flat")
-    assert int(query_total_spanned(views, pq[0], pq[1], pq[2], pq[4])) \
-        == int(got.total_rows)
+    jq4 = _jax_q(jq)
+    assert int(query_total_spanned(jax_spans, jq4[0], jq4[1], jq4[2], jq4[4],
+                                   heads=heads)) == int(got.total_rows)
 
 
 def test_stacked_matcher_equals_flat():
     """``test_spanned.py:189``: the stacked (n_spans, span_rows) view,
     padding lanes included, against JAX's stacked matcher and the flat
-    match; the probe's bounds give the same match again."""
+    match; the search's bounds (JAX's probe's) give the same match
+    again."""
+    from shazam_tpu.match.lookup import query_total_spanned
     from shazam_tpu.match.lookup import \
         match_query_sparse_spanned as jax_spanned
 
@@ -250,10 +252,13 @@ def test_stacked_matcher_equals_flat():
     assert lb.shape == (3, 256)
     again, _ = match_query_sparse_spanned(port, *pq, bounds=(lb, ub), **kw)
     _assert_raw_equal(again, got, "bounds")
-    total, lb2, ub2 = query_total_spanned(port, pq[0], pq[1], pq[2], pq[4],
+    jq4 = _jax_q(jq)
+    total, lb2, ub2 = query_total_spanned(jax_cols, jq4[0], jq4[1], jq4[2],
+                                          jq4[4], heads=heads,
                                           with_bounds=True)
     assert int(total) == int(got.total_rows)
-    assert torch.equal(lb2, lb) and torch.equal(ub2, ub)
+    assert np.array_equal(np.asarray(lb2), lb.numpy())
+    assert np.array_equal(np.asarray(ub2), ub.numpy())
     flat = _port_view(rows[0], rows[1], rows[2],
                       rows[3] * np.uint32(stride) + rows[4], stride)
     _assert_raw_equal(got, match_query_sparse(flat, *pq, **kw), "flat")
@@ -263,8 +268,8 @@ def test_stacked_joint_budget_clamp_and_escalation():
     """``test_spanned.py:644``: one budget across the stacked spans. At a
     small capacity the clamp signal is the total and whole runs drop, in
     both packages field for field; at the capacity that fits, the flat
-    answer; the pruned matcher equal at every candidate count; and the
-    blocked expansion's joint run budget (``expand_block_runs`` x
+    answer; JAX's pruned matcher equal to it at every candidate count; and
+    the blocked expansion's joint run budget (``expand_block_runs`` x
     n_spans) as JAX's, with the row-by-row fallback exact."""
     import jax.numpy as jnp
     from shazam_tpu.match.lookup import \
@@ -302,14 +307,11 @@ def test_stacked_joint_budget_clamp_and_escalation():
     _assert_raw_equal(big, match_query_sparse(flat, *pq, match_capacity=fit,
                                               **kw), "flat")
     for n_cand in (2, 16, n_songs):
-        pruned, clamp_p, ok = match_query_pruned_spanned(
-            port, *pq, match_capacity=fit, n_candidates=n_cand, **kw)
-        want_p, _c, want_ok = jax_pruned(
+        want_p, clamp_p, _ok = jax_pruned(
             jax_cols, *_jax_q(jq), heads=heads, offset_stride=stride,
             match_capacity=fit, n_candidates=n_cand, **kw)
-        _assert_raw_equal(pruned, big, n_cand)
-        _assert_raw_equal(pruned, want_p, n_cand)
-        assert int(clamp_p) == total and bool(ok) == bool(want_ok)
+        _assert_raw_equal(big, want_p, n_cand)
+        assert int(clamp_p) == total
 
     # blocked: 2 runs a span is too few for these queries; JAX stacks
     # rows of 10,000, the port needs a block size that divides them
@@ -365,8 +367,8 @@ def test_stacked_uview_and_port_give_equal_answers():
 
 def test_batched_spanned_matcher_equals_jax():
     """``match_queries_batched_spanned`` per span and stacked: every clip's
-    row and span_max as JAX's batch, and as the solo matcher; with the
-    pruned rank, each clip whose certificate holds is the sort rank's."""
+    row and span_max as JAX's batch, and as the solo matcher; each clip
+    whose certificate holds in JAX's pruned batch is the port's row."""
     from shazam_tpu.index.search import maybe_build_head
     from shazam_tpu.match.batched import \
         match_queries_batched_spanned as jax_batched
@@ -399,12 +401,16 @@ def test_batched_spanned_matcher_equals_jax():
                 port, *(c[i] for c in pq), **kw)
             _assert_raw_equal(type(got)(*(a[i] for a in got)), solo, i)
             assert int(solo_sm) == int(sm[i])
-        pr, sm_p, oks = match_queries_batched_spanned(
-            port, *pq, rank_candidates=4, vote_rank="pruned", **kw)
-        assert torch.equal(sm_p, sm)
-        for i in np.nonzero(oks.numpy())[0]:
-            _assert_raw_equal(type(pr)(*(a[i] for a in pr)),
-                              type(got)(*(a[i] for a in got)), i)
+        # every song a candidate: each certificate holds
+        pr, sm_p, oks = jax_batched(jcols, *_jax_q(jq), heads=jh,
+                                    offset_stride=stride,
+                                    rank_candidates=n_songs,
+                                    vote_rank="pruned", **kw)
+        assert np.array_equal(np.asarray(sm_p), sm.numpy()), name
+        assert np.asarray(oks).all(), name
+        for i in np.nonzero(np.asarray(oks))[0]:
+            _assert_raw_equal(type(got)(*(a[i] for a in got)),
+                              type(got)(*(a[i] for a in pr)), (name, i))
 
 
 def test_spanned_single_dispatch_vote_key_guard():
@@ -702,18 +708,21 @@ def test_consolidate_other_fault_is_not_staged(monkeypatch):
 # ---- SIA surfaces -------------------------------------------------------
 def test_recognize_batch_on_spanned_sia_equals_jax():
     """``recognize_batch`` on a spanned SIA, per span and consolidated,
-    under the default config and the pruned rank: answers equal to JAX's
+    under the default config and past the sparse threshold (JAX's pruned
+    rank, the port's sort rank in its place): answers equal to JAX's
     spanned SIA and to ``recognize_samples`` alone."""
+    from shazam_tpu.config import FingerprintConfig as JaxConfig
     from shazam_tpu_torch.config import FingerprintConfig
 
     songs = _songs(6)
     clips = [_clip(songs, i) for i in (0, 3, 5)] + [songs[2][1][:44100]]
-    cfgs = (FingerprintConfig(),
-            FingerprintConfig(vote_rank="pruned", rank_candidates=2,
-                              sparse_vote_threshold=0))
-    for cfg in cfgs:
+    cfgs = ((FingerprintConfig(), JaxConfig()),
+            (FingerprintConfig(vote_rank="sort", sparse_vote_threshold=0),
+             JaxConfig(vote_rank="pruned", rank_candidates=2,
+                       sparse_vote_threshold=0)))
+    for cfg, jax_cfg in cfgs:
         sia = SIA(device="cpu", device_span_rows=SPAN, config=cfg)
-        ref = _jax_sia(device_span_rows=SPAN, config=cfg)
+        ref = _jax_sia(device_span_rows=SPAN, config=jax_cfg)
         _device_ingest(sia, songs)
         _device_ingest(ref, songs, jax_side=True)
         for _layout in ("spans", "stacked"):

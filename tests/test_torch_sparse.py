@@ -1,10 +1,12 @@
-"""Port parity, big-catalog matchers: sort, scan and pruned ranks, blocked
+"""Port parity, big-catalog matchers: sort and scan ranks, blocked
 expansion, search-bound reuse.
 
 The same seeded numpy index and queries go through ``shazam_tpu`` (JAX on
 the CPU) and ``shazam_tpu_torch`` (PyTorch on the CPU); every RawMatch
-field must be equal, and so must the pruned rank's certificate flag and
-the expansion's vote stream.
+field must be equal, and so must the expansion's vote stream. The JAX
+package's candidate-pruned rank, which the port does not have, gives the
+answer of the port's sort rank wherever its certificate holds (and its
+fallback, the sort rank, everywhere else).
 """
 
 import jax.numpy as jnp
@@ -122,20 +124,19 @@ def test_sparse_matcher_matches_jax(planted, rank, cap, blk):
     (64, 65536, 2, "miss"),      # no votes: excluded_max == 0
 ])
 def test_pruned_matcher_matches_jax(planted, n_cand, cap, topn, query):
+    """The JAX package's pruned matcher, certificate and fallback, gives
+    the port's sort rank field for field."""
     q = planted[2] if query == "hit" else planted[3]
-    kw = dict(KW, topn=topn, match_capacity=cap, n_candidates=n_cand)
-    (got, ok), (want, jok) = _run_both(planted, q, jl.match_query_pruned,
-                                       tl.match_query_pruned, **kw)
+    kw = dict(KW, topn=topn, match_capacity=cap)
+    got, (want, jok) = _run_both(
+        planted, q,
+        lambda *a, **k: jl.match_query_pruned(*a, n_candidates=n_cand, **k),
+        tl.match_query_sparse, **kw)
     _assert_same(got, want, n_cand, cap, topn, query)
-    assert bool(ok) == bool(jok)
-    sparse = tl.match_query_sparse(planted[1], *(_t(a) for a in q),
-                                   **{k: v for k, v in kw.items()
-                                      if k != "n_candidates"})
-    _assert_same(got, sparse, "sort")
     if n_cand == 1:
-        assert not bool(ok)
+        assert not bool(jok)
     if n_cand == N_SONGS or query == "miss":
-        assert bool(ok)
+        assert bool(jok)
 
 
 @pytest.mark.parametrize("rank,n_cand", [("dense", 0), ("sort", 0),
@@ -143,7 +144,9 @@ def test_pruned_matcher_matches_jax(planted, n_cand, cap, topn, query):
                                          ("pruned", 0)])   # the sort rank
 def test_match_by_rank_matches_jax(planted, rank, n_cand):
     """The one rank dispatcher gives the named JAX matcher's RawMatch on a
-    clamped stream."""
+    clamped stream. The JAX package's pruned rank (and, with no
+    candidates, its sort rank) gives the port's sort rank, and the port
+    refuses the name."""
     kw = dict(KW, match_capacity=256)
     if rank == "dense":
         jfn = jl.match_query
@@ -156,10 +159,15 @@ def test_match_by_rank_matches_jax(planted, rank, n_cand):
                 *a, vote_rank="sort" if rank == "pruned" else rank, **k)
 
     def tfn(*a, **k):
-        return tl.match_by_rank(*a, rank=rank, n_candidates=n_cand, **k)
+        return tl.match_by_rank(*a, rank="sort" if rank == "pruned" else rank,
+                                **k)
 
     got, want = _run_both(planted, planted[2], jfn, tfn, **kw)
     _assert_same(got, want, rank, n_cand)
+    if rank == "pruned":
+        with pytest.raises(ValueError, match="unknown vote_rank"):
+            tl.match_by_rank(planted[1], *(_t(a) for a in planted[2]),
+                             rank=rank, **kw)
 
 
 def _stream(seed):
@@ -198,12 +206,19 @@ def test_vote_ranks_match_jax_randomized(seed):
                                  stream, **kw)
     _assert_same(scan_raw, want, "scan", seed, kw)
     _assert_same(scan_raw, sort_raw, "scan == sort", seed, kw)
+    # the JAX package's pruned rank, where its certificate holds, gives
+    # the sort rank's answer. It takes song ids under n_songs only (no
+    # matcher makes others): the ids past it, non-votes to the sort rank,
+    # are invalid lanes for it
+    sid, delta, first, valid = stream
+    in_catalog = valid & (sid < kw["n_songs"])
     for c in (1, 2, 16):
-        (got, ok), (want, jok) = _ranks_both(
-            jl._pruned_vote_rank, tl._pruned_vote_rank, stream,
-            n_candidates=c, **kw)
-        _assert_same(got, want, "pruned", c, seed, kw)
-        assert bool(ok) == bool(jok)
+        want, jok = jl._pruned_vote_rank(
+            jnp.asarray(sid, jnp.int32), jnp.asarray(delta, jnp.int32),
+            jnp.asarray(first), jnp.asarray(in_catalog),
+            jnp.int32(int(valid.sum())), jnp.int32(3), n_candidates=c, **kw)
+        if bool(jok):
+            _assert_same(sort_raw, want, "pruned", c, seed, kw)
 
 
 @pytest.mark.parametrize("sid,delta", [
@@ -257,9 +272,9 @@ def test_blocked_expansion_matches_scalar_and_jax(runs, blk, rank):
     ref = tl.match_query_sparse(tdev, *tq, match_capacity=1 << 16, **kw)
     assert int(ref.n_dropped) == 0
     if rank == "pruned":
-        got, _ = tl.match_query_pruned(tdev, *tq, match_capacity=1 << 16,
-                                       expand_block=blk, n_candidates=8,
-                                       **kw)
+        # the JAX package's pruned rank against the port's sort rank
+        got = tl.match_query_sparse(tdev, *tq, match_capacity=1 << 16,
+                                    expand_block=blk, **kw)
         want, _ = jl.match_query_pruned(
             jix.device_arrays(), *(jnp.asarray(a) for a in q),
             match_capacity=1 << 16, expand_block=blk, n_candidates=8,
@@ -325,27 +340,29 @@ def test_blocked_expansion_budgets_match_jax(hot_runs, lanes, cap,
 
 
 def test_search_bounds_are_reused(planted):
-    """with_bounds returns the search's (lb, ub) (equal to query_total's
-    and the JAX package's); a match given them back as ``bounds`` equals
-    the one that searched itself."""
+    """with_bounds returns the search's (lb, ub) (equal to the JAX
+    package's, from its match and from its exact-total probe, whose total
+    is the clamped match's ``total_rows``); a match given them back as
+    ``bounds`` equals the one that searched itself."""
     jdev, tdev, q, _ = planted
     tq = [_t(a) for a in q]
+    jq = [jnp.asarray(a) for a in q]
     kw = dict(KW, match_capacity=256, vote_rank="scan", expand_block=512)
     raw, lb, ub = tl.match_query_sparse(tdev, *tq, with_bounds=True, **kw)
     jraw, jlb, jub = jl.match_query_sparse(
-        jdev, *(jnp.asarray(a) for a in q), offset_stride=STRIDE,
-        with_bounds=True, **kw)
+        jdev, *jq, offset_stride=STRIDE, with_bounds=True, **kw)
     _assert_same(raw, jraw)
-    total, lb2, ub2 = tl.query_total(tdev, tq[0], tq[1], tq[2], tq[4],
+    total, lb2, ub2 = jl.query_total(jdev, jq[0], jq[1], jq[2], jq[4],
                                      with_bounds=True)
     for a, b in ((lb, jlb), (ub, jub), (lb2, lb), (ub2, ub)):
         assert np.array_equal(np.asarray(a), np.asarray(b))
-    assert int(total) == int(raw.total_rows)
+    assert int(total) == int(raw.total_rows) > 256
     again = tl.match_query_sparse(tdev, *tq, bounds=(lb, ub),
                                   **dict(kw, match_capacity=65536))
     fresh = tl.match_query_sparse(tdev, *tq, **dict(kw, match_capacity=65536))
     _assert_same(again, fresh)
-    got, _ = tl.match_query_pruned(tdev, *tq, bounds=(lb, ub), **KW)
+    got = tl.match_by_rank(tdev, *tq, rank="sort", bounds=(lb, ub),
+                           **dict(KW, match_capacity=65536))
     _assert_same(got, fresh)
 
 
@@ -362,7 +379,10 @@ def _meta_paths():
         return torch.empty(shape, dtype=torch.bool, device="meta")
 
     index = DeviceIndex(ints(4096), ints(4096), ints(4096), 4000, 1024)
+    stacked = DeviceIndex(ints(3, 4096), ints(3, 4096), ints(3, 4096), 9000,
+                          1024)
     q = (ints(Q), ints(Q), ints(Q), ints(Q), bools(Q), bools(Q))
+    bounds = (ints(Q), ints(Q))
     fp = Fingerprints(ints(1, 2048), ints(1, 2048), ints(1, 2048),
                       ints(1, 2048), bools(1, 2048),
                       torch.empty(1, dtype=torch.int32, device="meta"))
@@ -374,13 +394,14 @@ def _meta_paths():
         "scan_blocked": lambda: tl.match_query_sparse(
             index, *q, vote_rank="scan", expand_block=128, expand_runs=16,
             with_bounds=True, **kw),
-        "pruned": lambda: tl.match_query_pruned(index, *q, n_candidates=8,
-                                                **kw),
-        "probe": lambda: tl.query_total(index, *q[:3], q[4],
-                                        with_bounds=True),
-        "clip_pruned": lambda: recognize_fingerprints(
-            fp, index, query_capacity=512, rank_candidates=8,
-            sparse_threshold=0, **kw),
+        "bounds_reuse": lambda: tl.match_by_rank(
+            index, *q, rank="scan", expand_block=128, expand_runs=16,
+            bounds=bounds, **kw),
+        "with_bounds": lambda: tl.match_by_rank(index, *q, rank="sort",
+                                                with_bounds=True, **kw),
+        "spanned_sort": lambda: tl.match_query_sparse_spanned(
+            stacked, *q, expand_block=128, expand_runs=16, with_bounds=True,
+            **kw),
         "clip_dense": lambda: recognize_fingerprints(
             fp, index, query_capacity=512, **kw),
     }

@@ -4,8 +4,8 @@ A (2, N) clip is fingerprinted as one B = 2 batch, the union of its two
 rows' (hash, offset) pairs is deduped on the device and matched once
 (the reference's one-shot recognizer, ``recognizer.py:355-382``). Its
 answer must equal ``recognize_samples([L, R])`` in every ``RawMatch``
-field and every key of the result, on the dense, sparse decide-first,
-bounds-first and spanned stores; equal the JAX package's
+field and every key of the result, on the dense, sparse decide-first
+(with and without an accepted clamp) and spanned stores; equal the JAX package's
 ``recognize_samples([L, R])``; and equal the benchmark's plain reference
 (``benchmark_torch/reference``: the stereo union and ``match``). A union
 past the query lanes, or a match clamped and not provably decided, goes
@@ -33,7 +33,7 @@ SPARSE = dict(sparse_vote_threshold=0, bounds_probe_min_rows=1)
 STORES = {
     "dense": dict(config={}),
     "sparse_decide": dict(config=dict(SPARSE, escalation_policy="decide")),
-    "bounds_first": dict(config=dict(SPARSE, escalation_policy="bounds")),
+    "decide_no_accept": dict(config=dict(SPARSE, decision_escalation=False)),
     "spanned": dict(config={}, device_span_rows=4096),
 }
 
@@ -308,9 +308,8 @@ def test_decide_first_continuation_adapts_as_the_handoff(long_songs):
                                 pytest.MonkeyPatch())
         continued += any(r.name == "sia.rematch" for r in recs)
         assert _strip(got) == _strip(twin.recognize_clip(clip))
-        assert (sia._decide_stats, sia._decide_boost) == (
-            twin._decide_stats, twin._decide_boost)
-    assert continued >= 4 and sia._decide_boost > 0
+        assert sia.decide.state() == twin.decide.state()
+    assert continued >= 4 and sia.decide.state()[1] > 0
 
 
 def test_a_channel_past_the_peak_capacity_hands_off(songs, monkeypatch):

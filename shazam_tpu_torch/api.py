@@ -10,12 +10,11 @@ The port of ``shazam_tpu.api.SIA``'s main path, on an explicit device:
   its sorted run into the host index. A song becomes durable only after
   its hashes are merged (the reference's set_song_fingerprinted rule).
 - ``SIA.recognize_clip``: one mono or stereo clip through fingerprint,
-  on-device dedup, match and rank with a single read-back; a clamped
-  answer that is not provably exact, or a query past its lanes, goes on
-  through the capacity tiers from the query or fingerprint still on the
-  device, and a peak overflow (or a clip past the dedup's 16-bit
-  offsets) falls back to ``recognize_samples`` (two passes, capacity
-  tiers).
+  on-device dedup of every lane the fingerprint holds, match and rank
+  with a single read-back; a clamped answer that is not provably exact
+  goes on through the capacity tiers from the query still on the device,
+  and a peak overflow (or a clip past the dedup's 16-bit offsets) falls
+  back to ``recognize_samples`` (two passes, capacity tiers).
 - Every dispatch decision (the tiers, the rank, the blocked expansion,
   the big-index test, the margin test, the decide tier) and the one
   capacity ladder live in ``match/tiers.py``. Past
@@ -95,7 +94,7 @@ from .match.batched import (batched_raw_to_host, match_queries_batched,
                             match_queries_batched_spanned)
 from .match.lookup import (RawMatch, _is_stacked, match_by_rank,
                            match_query_sparse_spanned, raw_to_host)
-from .match import ondevice, tiers
+from .match import tiers
 from .match.ondevice import recognize_on_device, recognize_on_device_spanned
 from .match.prepare import QueryPairs, prepare_query, q_frames_for_max_offset
 from .ops.fingerprint import (Fingerprints, fingerprint_batch,
@@ -987,14 +986,15 @@ class SIA:
         Fingerprint (the C rows in one call), on-device dedup of the
         union of their (hash, offset) pairs, match and rank run on the
         device with one read-back at the end; results equal
-        ``recognize_samples`` of the clip's channels. A clip whose query
-        lanes overflowed, or whose match clamped without being provably
-        decided, goes on from the fingerprint and query the pass left on
-        the device (``_rematch``); one that overflows the peak capacity in
-        any channel, or is longer than the dedup's 16-bit offsets, goes to
-        ``recognize_samples``. On a big index (sparse ranks and
-        ``bounds_probe_min_rows``) the single pass runs at the decide tier
-        and keeps its search bounds for the continuation.
+        ``recognize_samples`` of the clip's channels. The query holds every
+        lane of the clip's fingerprint, rows x (fan_value - 1) x
+        peak_capacity, so the dedup drops none. A clip whose match clamped
+        without being provably decided goes on from the query the pass
+        left on the device (``_rematch``); one that overflows the peak
+        capacity in any channel, or is longer than the dedup's 16-bit
+        offsets, goes to ``recognize_samples``. On a big index (sparse
+        ranks and ``bounds_probe_min_rows``) the single pass runs at the
+        decide tier and keeps its search bounds for the continuation.
         """
         samples = np.asarray(samples)
         if samples.ndim not in (1, 2) or (
@@ -1013,91 +1013,66 @@ class SIA:
         t0 = time.time()
         n = samples.shape[-1]
         blen = _bucket_len(n)
-        if (blen - self.config.window_size) // self.config.hop + 1 > 1 << 16:
+        cfg = self.config
+        if (blen - cfg.window_size) // cfg.hop + 1 > 1 << 16:
             # > ~51 min: the on-device dedup packs offsets into 16 bits
             return self._handoff(samples, topn, "long")
         index = self._ensure_device_index()
         delta_min, delta_range = self._delta_params_for(n)
         n_songs = self._n_songs()
-        # dedup-sort + search cost is linear in query lanes: a 5 s mono
-        # clip yields ~1-2K unique pairs. A 5 s channel at 0 dB SNR
-        # reaches ~2,100 lanes, so each row of a stereo clip gets the
-        # long clip's 4,096
-        q_cap = rows * (2048 if n <= 6 * self.config.sample_rate
-                        and rows == 1 else 4096)
+        # every lane of the fingerprint: no clip overflows its own query
+        q_cap = rows * (cfg.fan_value - 1) * cfg.peak_capacity
         if self._is_spanned:
             return self._recognize_clip_spanned(
                 samples, index, n_songs=n_songs, delta_min=delta_min,
                 delta_range=delta_range, q_cap=q_cap, topn=topn, t0=t0)
-        cfg = self.config
         sparse = self._sparse(delta_range)
         big = sparse and tiers.big_index(cfg, index)
         one_cap = (self.decide.cap(cfg, tiers.match_tiers(cfg)) if big
                    else cfg.match_capacity_fast)
         x, nv = self._to_device(samples)
         # decide-first keeps its search bounds, as _match_tiered does
-        raw, n_pairs, n_peaks, n_hashes, fp, q_dev, bounds = \
-            recognize_on_device(
-                x, nv, index, **self._fp_kwargs(), use_fused=_fused_ok(cfg),
-                n_songs=n_songs, delta_min=delta_min,
-                delta_range=delta_range, match_capacity=one_cap,
-                topn=topn or cfg.topn, query_capacity=q_cap,
-                rank=tiers.rank_for(cfg, one_cap, sparse),
-                expand_block=tiers.expand_block(cfg, index, one_cap),
-                expand_runs=cfg.expand_block_runs, with_bounds=big)
+        raw, n_pairs, n_peaks, n_hashes, q_dev, bounds = recognize_on_device(
+            x, nv, index, **self._fp_kwargs(), use_fused=_fused_ok(cfg),
+            n_songs=n_songs, delta_min=delta_min, delta_range=delta_range,
+            match_capacity=one_cap, topn=topn or cfg.topn,
+            query_capacity=q_cap, rank=tiers.rank_for(cfg, one_cap, sparse),
+            expand_block=tiers.expand_block(cfg, index, one_cap),
+            expand_runs=cfg.expand_block_runs, with_bounds=big)
         raw, (n_pairs, n_peaks, n_hashes) = raw_to_host(
             raw, n_pairs, n_peaks, n_hashes)
         annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
         reason = self._handoff_reason(
-            n_peaks, n_hashes, q_cap,
-            (raw.total_rows > one_cap or raw.n_dropped > 0)
+            n_peaks, (raw.total_rows > one_cap or raw.n_dropped > 0)
             and not tiers.decided(raw, cfg))
-        if reason in ("lanes", "undecided"):
+        if reason == "undecided":
             return self._rematch(
-                reason, index, fp, q_dev, n,
-                first=(one_cap, raw, raw.total_rows, bounds), q_cap=q_cap,
-                n_pairs=n_pairs, n_hashes=n_hashes, topn=topn, t0=t0)
+                index, q_dev, n, first=(one_cap, raw, raw.total_rows, bounds),
+                q_cap=q_cap, n_pairs=n_pairs, topn=topn, t0=t0)
         if reason:
             return self._handoff(samples, topn, reason)
         return self._clip_result(raw, n_pairs, max(raw.total_rows, one_cap),
                                  time.time() - t0)
 
-    def _rematch(self, reason: str, index: DeviceIndex, fp: Fingerprints,
-                 q_dev, n_samples: int, *, first, q_cap: int, n_pairs: int,
-                 n_hashes: int, topn: Optional[int], t0: float) -> Dict:
-        """``recognize_clip``'s continuation from what its single pass left
-        on the device, where the pass's answer is not final: its clamped
-        match is not provably decided (``undecided``: the tiers go on from
-        the pass's own dispatch, ``first``), or its channels' valid lanes
-        passed the query's ``q_cap`` (``lanes``: the fingerprint ``fp`` is
-        deduped again at the smallest power of two that holds its
-        ``n_hashes`` lanes, and that query takes the tiers from their
-        start). Either way the tiers are ``recognize_samples``' own, so the
-        result equals it."""
-        with span("sia.rematch", reason=reason):
-            if reason == "lanes":
-                q_cap = min(1 << (n_hashes - 1).bit_length(),
-                            fp.hi.numel())
-                *q_dev, n_pairs_d, _ = ondevice._fingerprint_dedup(fp, q_cap)
-                first = None
+    def _rematch(self, index: DeviceIndex, q_dev, n_samples: int, *, first,
+                 q_cap: int, n_pairs: int, topn: Optional[int],
+                 t0: float) -> Dict:
+        """``recognize_clip``'s continuation from the query its single pass
+        left on the device, where the pass's clamped match is not provably
+        decided: the tiers go on from the pass's own dispatch, ``first``.
+        They are ``recognize_samples``' own, so the result equals it."""
+        with span("sia.rematch", reason="undecided"):
             raw, cap = self._match_tiered(index, q_dev, n_samples,
                                           topn=topn, first=first)
-            if reason == "lanes":
-                with span("sia.readback"):
-                    n_pairs = int(n_pairs_d)
-                annotate("sia.recognize_clip", pairs=n_pairs)
             annotate("sia.rematch", query_capacity=q_cap, cap=cap)
             return self._clip_result(raw, n_pairs, cap, time.time() - t0)
 
-    def _handoff_reason(self, n_peaks: int, n_hashes: int, q_cap: int,
-                        undecided: bool) -> Optional[str]:
+    def _handoff_reason(self, n_peaks: int, undecided: bool) -> Optional[str]:
         """Why a clip's single pass cannot answer it, or None: its peaks
-        (in any channel) or its query lanes overflowed, or its clamped
-        match is not provably decided."""
+        (in any channel) overflowed, or its clamped match is not provably
+        decided."""
         if n_peaks > self.config.peak_capacity:
             return "peaks"
-        if n_hashes > q_cap:
-            return "lanes"
         return "undecided" if undecided else None
 
     def _handoff(self, samples: np.ndarray, topn: Optional[int],
@@ -1114,8 +1089,8 @@ class SIA:
                                 topn: Optional[int], t0: float) -> Dict:
         """``recognize_clip`` on a spanned store: one pass at the fast tier
         through every span (``recognize_on_device_spanned``), one
-        read-back. A peak or query-lane overflow, or a clamped span that
-        is not provably decided, goes to ``recognize_samples``."""
+        read-back. A peak overflow, or a clamped span that is not provably
+        decided, goes to ``recognize_samples``."""
         fast = self.config.match_capacity_fast
         x, nv = self._to_device(samples)
         raw, *counts = recognize_on_device_spanned(
@@ -1129,8 +1104,7 @@ class SIA:
         device_time = time.time() - t0
         annotate("sia.recognize_clip", lanes=n_hashes, pairs=n_pairs)
         reason = self._handoff_reason(
-            n_peaks, n_hashes, q_cap,
-            (span_max > fast or raw.n_dropped > 0)
+            n_peaks, (span_max > fast or raw.n_dropped > 0)
             and not tiers.decided(raw, self.config))
         if reason:
             return self._handoff(samples, topn, reason)

@@ -16,10 +16,10 @@ everything on the device and reads back once:
    names (``match/tiers.rank_for``): the dense histogram, or past
    ``sparse_vote_threshold`` vote bins the sort or the scan rank.
 
-``recognize_on_device`` also hands back the fingerprint and the query,
-so that a clip whose answer is not final goes on from them
-(``SIA._rematch``); ``recognize_on_device_spanned`` runs the three steps
-against a spanned store.
+``recognize_on_device`` also hands back the query, so that a clip whose
+answer is not final goes on from it (``SIA._rematch``);
+``recognize_on_device_spanned`` runs the three steps against a spanned
+store.
 """
 
 from __future__ import annotations
@@ -45,8 +45,9 @@ def _fingerprint_dedup(fp: Fingerprints, query_capacity: int):
 
     Returns (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs,
     n_hashes_total): the first ``query_capacity`` valid lanes (in
-    row-major lane order), sorted by (hash, offset) with invalid lanes
-    last; ``n_hashes_total`` counts the valid lanes of every row.
+    row-major lane order; every lane where ``query_capacity`` holds the
+    fingerprint's), sorted by (hash, offset) with invalid lanes last;
+    ``n_hashes_total`` counts the valid lanes of every row.
     """
     with span("match.dedup", rows=fp.hi.shape[0],
               query_capacity=query_capacity):
@@ -57,17 +58,22 @@ def _fingerprint_dedup(fp: Fingerprints, query_capacity: int):
 def _dedup_lanes(hi, lo, ex, t1, valid, query_capacity: int):
     n_hashes_total = valid.sum()
 
-    # order-preserving compaction of the valid lanes to query_capacity
+    # order-preserving compaction of the valid lanes to query_capacity;
+    # a capacity that holds every lane keeps them all, so the sort below
+    # orders the valid ones alike without it
     n_lanes = hi.shape[0]
     cap = min(query_capacity, n_lanes)
-    pos = torch.cumsum(valid.to(torch.int64), 0) - 1
-    take = valid & (pos < cap)
-    lane = torch.zeros(cap + 1, dtype=torch.int64, device=hi.device)
-    lane.scatter_(0, torch.where(take, pos, cap),
-                  torch.where(take, torch.arange(n_lanes, device=hi.device), 0))
-    lane = lane[:cap]
-    valid = torch.arange(cap, device=hi.device) < torch.clamp(n_hashes_total, max=cap)
-    hi, lo, ex, t1 = hi[lane], lo[lane], ex[lane], t1[lane]
+    if cap < n_lanes:
+        pos = torch.cumsum(valid.to(torch.int64), 0) - 1
+        take = valid & (pos < cap)
+        lane = torch.zeros(cap + 1, dtype=torch.int64, device=hi.device)
+        lane.scatter_(0, torch.where(take, pos, cap),
+                      torch.where(take, torch.arange(n_lanes,
+                                                     device=hi.device), 0))
+        lane = lane[:cap]
+        valid = (torch.arange(cap, device=hi.device)
+                 < torch.clamp(n_hashes_total, max=cap))
+        hi, lo, ex, t1 = hi[lane], lo[lane], ex[lane], t1[lane]
 
     # sort by (hash, offset), invalid last: ex and the 16-bit frame offset
     # pack into one minor key (the caller bounds clips to 2^16 frames);
@@ -169,24 +175,23 @@ def recognize_on_device(samples: torch.Tensor, n_valid: torch.Tensor,
                         expand_block: int = 0, expand_runs: int = 0,
                         with_bounds: bool = False):
     """(C, N) f32 clip, (C,) valid lengths -> (RawMatch, n_pairs, n_peaks,
-    n_hashes_total, fp, q, bounds) on the device, matched with the rank
-    named ``rank`` ("dense", "sort" or "scan"); nothing is read back
-    here. Beside the answer it returns what the pass built, for a caller
-    that goes on from it: the fingerprint ``fp``, the deduped query ``q
-    = (sort_hi, lo, ex, t1, q_valid, q_first)`` and, ``with_bounds`` (a
-    sparse rank), the match's search (lb, ub), else None.
+    n_hashes_total, q, bounds) on the device, matched with the rank named
+    ``rank`` ("dense", "sort" or "scan"); nothing is read back here.
+    Beside the answer it returns what the pass built, for a caller that
+    goes on from it: the deduped query ``q = (sort_hi, lo, ex, t1,
+    q_valid, q_first)`` and, ``with_bounds`` (a sparse rank), the match's
+    search (lb, ub), else None.
     ``use_fused=False`` fingerprints with the plain ``fingerprint_batch``,
     for configurations outside the kernels' contract."""
     fp = _fingerprint_clip(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
         peak_capacity=peak_capacity, use_fused=use_fused)
-    raw, n_pairs, n_peaks, n_hashes_total, q, bounds = _match_fingerprints(
+    return _match_fingerprints(
         fp, index, n_songs=n_songs, delta_min=delta_min,
         delta_range=delta_range, match_capacity=match_capacity, topn=topn,
         query_capacity=query_capacity, rank=rank, expand_block=expand_block,
         expand_runs=expand_runs, with_bounds=with_bounds)
-    return raw, n_pairs, n_peaks, n_hashes_total, fp, q, bounds
 
 
 def recognize_on_device_spanned(samples: torch.Tensor, n_valid: torch.Tensor,

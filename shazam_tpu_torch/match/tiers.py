@@ -118,7 +118,14 @@ class DecideTier:
     ``decide_adapt_window`` decided-first dispatches, an undecided share
     above 1/2 raises the tier one step (corpora with long hyper-common
     runs need a larger run budget before margins certify), never past
-    ``decide_adapt_max`` unless ``decide_capacity`` asks for more."""
+    ``decide_adapt_max`` unless ``decide_capacity`` asks for more.
+
+    A batch records each of its clips; ``escalate`` records its one
+    decided-first dispatch. ``recognize_clip``'s single pass reaches
+    ``escalate`` only when it is continued (clamped, not decided), so the
+    window counts such a pass as one undecided attempt and never counts a
+    pass that was decided or fitted. A clip's query holds every lane of
+    its fingerprint, so a clip past any width is recorded the same way."""
 
     def __init__(self):
         self._window = [0, 0]   # [attempts, undecided] of this window

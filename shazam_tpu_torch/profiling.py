@@ -32,19 +32,21 @@ The spans of the port, from a request down:
   the plain twin on the CPU); ``impl`` is ``cuda`` or ``torch``, ``lanes``
   the lanes hashed.
 - ``match.dedup``: the on-device query dedup; ``rows`` the channel rows it
-  takes the union of, ``query_capacity`` the lanes it keeps.
+  takes the union of, ``query_capacity`` the lanes it keeps (in
+  ``recognize_clip``'s pass every lane of the clip's fingerprint, rows x
+  (fan_value - 1) x peak_capacity).
 - ``match.rank``: one match dispatch: search, expansion and vote rank.
 - ``sia.readback``: the host blocked on the device while it copies back.
 - ``sia.align``: the reference-shaped result records, on the host.
 - ``sia.rematch``: a clip whose single pass on the flat store did not
-  answer it, going on from what the pass left on the device; ``reason``
-  is ``undecided`` (a clamped match not provably decided) or ``lanes``
-  (the channels' lanes passed the query, deduped again), and once it has
-  matched ``query_capacity`` the query's lanes and ``cap`` the capacity
-  it reports (its last tier, or the exact total of a decided clamp).
+  answer it, going on from the query the pass left on the device;
+  ``reason`` is ``undecided`` (a clamped match not provably decided), and
+  once it has matched ``query_capacity`` the query's lanes and ``cap``
+  the capacity it reports (its last tier, or the exact total of a
+  decided clamp).
 - ``sia.handoff``: a clip sent on to ``recognize_samples``; ``reason`` is
-  ``peaks``, ``lanes``, ``undecided`` or ``long`` (``lanes`` and
-  ``undecided`` from the spanned and bounds-first passes only).
+  ``peaks``, ``undecided`` or ``long`` (``undecided`` from the spanned
+  pass only).
 - ``query.prepare``: host query dedup and padding, and a batch's stacking.
 - ``sia.prepare_batch`` and ``sia.match_prepared_batch``: a batch's two
   stages, ``clips`` its real clips; ``match.solo_retry``: one clip of the

@@ -212,7 +212,8 @@ def test_undecided_clip_is_handed_off_under_a_span(songs, monkeypatch):
     tree = _tree(recs, root)
     (rematch,) = tree["sia.rematch"]
     assert rematch.parent == root.index
-    assert rematch.attrs == {"reason": "undecided", "query_capacity": 2048,
+    assert rematch.attrs == {"reason": "undecided", "query_capacity":
+                             (cfg.fan_value - 1) * cfg.peak_capacity,
                              "cap": cfg.match_capacity}
     assert "sia.handoff" not in tree and "query.prepare" not in tree
     assert len(tree["fp.peaks"]) == len(tree["match.dedup"]) == 1

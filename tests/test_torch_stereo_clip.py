@@ -7,9 +7,10 @@ answer must equal ``recognize_samples([L, R])`` in every ``RawMatch``
 field and every key of the result, on the dense, sparse decide-first
 (with and without an accepted clamp) and spanned stores; equal the JAX package's
 ``recognize_samples([L, R])``; and equal the benchmark's plain reference
-(``benchmark_torch/reference``: the stereo union and ``match``). A union
-past the query lanes, or a match clamped and not provably decided, goes
-on from the pass's fingerprint and query on the device (``sia.rematch``)
+(``benchmark_torch/reference``: the stereo union and ``match``). The
+pass's query holds every lane of the clip's fingerprint, so a union of
+any width is matched in the pass; a match clamped and not provably
+decided goes on from the pass's query on the device (``sia.rematch``)
 and still equals ``recognize_samples``; a channel past the peak capacity
 hands off with its reason; more than two channels raise. The root span carries
 ``channels``, ``lanes`` and ``pairs``, the dedup span ``rows`` and
@@ -190,9 +191,10 @@ def _continued(recs, reason):
 
 def test_a_union_past_the_lanes_hands_off(engines, monkeypatch):
     """White noise fills a channel with peaks: two 12 s channels of it
-    pass the stereo clip's 2 x 4,096 lanes. The clip is handed on to the
-    continuation, not to ``recognize_samples``: its fingerprint is
-    deduped again on the device at 16,384 lanes and matched there."""
+    pass 2 x 4,096 lanes, the stereo pass's query before it held every
+    lane. Nothing is handed on: the pass dedups all 2 x 32,768 lanes of
+    the fingerprint once, matches them once, and its answer and
+    ``RawMatch`` equal ``recognize_samples``'."""
     sia = engines["dense"]
     rng = np.random.default_rng(0)
     noise = rng.normal(0, 8000, (2, 12 * FS)).astype(np.float32)
@@ -201,14 +203,20 @@ def test_a_union_past_the_lanes_hands_off(engines, monkeypatch):
     got, recs = _records_of(lambda: sia.recognize_clip(noise),
                             monkeypatch)
     assert calls == []
-    root, rematch = _continued(recs, "lanes")
+    names = [r.name for r in recs]
+    assert "sia.handoff" not in names and "sia.rematch" not in names
+    (root,) = [r for r in recs if r.name == "sia.recognize_clip"]
     assert root.attrs["lanes"] > 8192
     assert [r.attrs["query_capacity"] for r in recs
-            if r.name == "match.dedup"] == [8192, 16384]
-    assert rematch.attrs == {"reason": "lanes", "query_capacity": 16384,
-                             "cap": seen[-1][1]}
+            if r.name == "match.dedup"] == [65536]
     assert root.attrs["pairs"] == got["input_hashes"] > 8192
+    (clip_raw, _cap), = seen
+    seen.clear()
     assert _strip(got) == _strip(sia.recognize_samples(list(noise)))
+    (raw, _cap), = seen
+    for field in raw._fields:
+        assert np.array_equal(np.asarray(getattr(clip_raw, field)),
+                              np.asarray(getattr(raw, field))), field
 
 
 @pytest.fixture(scope="module")
@@ -218,10 +226,15 @@ def long_songs():
 
 
 # undecided: every clamp of the 64-row fast tier goes on up the tiers;
-# lanes: a fan value of 15 passes the query lanes with 0 dB noise
+# lanes: a fan value of 15 and 0 dB noise put a clip's lanes past 4,096
+# a row, the pass's query width before it held every fingerprint lane,
+# at the fast tier and (lanes_decide) at the decide tier of a big index
 CONTINUED = {"undecided": dict(match_capacity_fast=64,
                                decision_escalation=False),
-             "lanes": dict(fan_value=15)}
+             "lanes": dict(fan_value=15),
+             "lanes_decide": dict(SPARSE, fan_value=15,
+                                  escalation_policy="decide")}
+OLD_ROW_LANES = 4096
 
 
 @pytest.fixture(scope="module")
@@ -262,16 +275,28 @@ def test_continued_clip_equals_recognize_samples(continued_engines,
                                                  monkeypatch):
     """A clip the single pass cannot answer goes on on the device, with
     no ``recognize_samples`` call, and its result and ``RawMatch`` equal
-    ``recognize_samples`` of its channels: mono and stereo alike."""
+    ``recognize_samples`` of its channels: mono and stereo alike. A clip
+    past the old query width is deduped and matched once in the pass,
+    and goes on only as ``undecided``."""
     sia = continued_engines[reason]
-    clip = _listen_clip(long_songs, shape, 1, noisy=reason == "lanes")
+    wide = reason != "undecided"
+    clip = _listen_clip(long_songs, shape, 1, noisy=wide)
     calls = _handoffs(monkeypatch)
     seen = _raw_of(monkeypatch)
     got, recs = _records_of(lambda: sia.recognize_clip(clip), monkeypatch)
     assert calls == []
-    _root, rematch = _continued(recs, reason)
+    names = [r.name for r in recs]
+    assert names.count("match.dedup") == 1
+    rematches = [r for r in recs if r.name == "sia.rematch"]
+    if wide:
+        (root,) = [r for r in recs if r.name == "sia.recognize_clip"]
+        assert root.attrs["lanes"] > OLD_ROW_LANES * root.attrs["channels"]
+        assert "sia.handoff" not in names
+    else:
+        rematches = [_continued(recs, reason)[1]]
+    assert all(r.attrs["reason"] == "undecided" for r in rematches)
     (clip_raw, clip_cap), = seen
-    assert rematch.attrs["cap"] == clip_cap
+    assert all(r.attrs["cap"] == clip_cap for r in rematches)
     seen.clear()
     want = sia.recognize_samples(list(np.atleast_2d(clip)))
     assert _strip(got) == _strip(want)
@@ -287,13 +312,19 @@ def test_decide_first_continuation_adapts_as_the_handoff(long_songs):
     """On a store counted as big (decided-first at a 64-row decide tier
     over a window of 4), the continued clips give the answers and leave
     the decide tier's statistics and boost that handing them to
-    ``recognize_samples`` leaves."""
+    ``recognize_samples`` leaves. The window records a clip only when its
+    pass is continued (clamped and not decided: one undecided attempt),
+    whatever its lanes; a pass that is decided or fits is not recorded."""
     cfg = FingerprintConfig(**SPARSE, escalation_policy="decide",
                             match_capacity_fast=64, match_capacity=256,
                             decide_capacity=64, decide_adapt_window=4)
     sia, twin = SIA(config=cfg, device="cpu"), SIA(config=cfg, device="cpu")
     for engine in (sia, twin):
         engine.ingest_arrays(long_songs)
+    recorded = []
+    record = sia.decide.record
+    sia.decide.record = lambda c, a, u: (recorded.append((a, u)),
+                                         record(c, a, u))
     clips = [_listen_clip(long_songs, shape, k, noisy)
              for k in range(len(long_songs))
              for shape in ("mono15", "stereo5") for noisy in (False, True)]
@@ -310,6 +341,7 @@ def test_decide_first_continuation_adapts_as_the_handoff(long_songs):
         assert _strip(got) == _strip(twin.recognize_clip(clip))
         assert sia.decide.state() == twin.decide.state()
     assert continued >= 4 and sia.decide.state()[1] > 0
+    assert recorded == [(1, 1)] * continued
 
 
 def test_a_channel_past_the_peak_capacity_hands_off(songs, monkeypatch):
@@ -385,8 +417,9 @@ def test_span_attributes_are_set_inside_the_span(engines, clips,
 
     monkeypatch.setattr(ondevice, "_fingerprint_clip", capture)
     sia = engines["dense"]
-    for clip, rows, cap in ((clips["mics1"], 2, 8192),
-                            (clips["mics1"][0], 1, 2048)):
+    lanes = (sia.config.fan_value - 1) * sia.config.peak_capacity
+    for clip, rows, cap in ((clips["mics1"], 2, 2 * lanes),
+                            (clips["mics1"][0], 1, lanes)):
         fps.clear()
         got, recs = _records_of(lambda: sia.recognize_clip(clip),
                                 monkeypatch)
@@ -397,3 +430,36 @@ def test_span_attributes_are_set_inside_the_span(engines, clips,
                               "pairs": got["input_hashes"]}
         assert dedup.attrs == {"rows": rows, "query_capacity": cap}
     assert fps[0].hi.shape[0] == 1
+
+
+@pytest.mark.parametrize("engine", list(CONTINUED))
+@pytest.mark.parametrize("shape", ["mono15", "stereo5"])
+def test_the_pass_query_holds_every_fingerprint_lane(continued_engines,
+                                                     long_songs, shape,
+                                                     engine, monkeypatch):
+    """The single pass sizes its query from the clip's rows and the
+    config alone, rows x (fan_value - 1) x peak_capacity, the lanes of
+    the fingerprint it builds, so no clip's lanes pass it: its one
+    ``match.dedup`` span carries that width, and no pass is continued or
+    handed off for its lanes."""
+    from shazam_tpu_torch.match import ondevice
+
+    sia = continued_engines[engine]
+    cfg = sia.config
+    fps, reasons = [], []
+    inner, why = ondevice._fingerprint_clip, SIA._handoff_reason
+    monkeypatch.setattr(ondevice, "_fingerprint_clip",
+                        lambda *a, **k: fps.append(inner(*a, **k)) or fps[-1])
+    monkeypatch.setattr(SIA, "_handoff_reason", lambda self, *a:
+                        reasons.append(why(self, *a)) or reasons[-1])
+    clip = _listen_clip(long_songs, shape, 2, noisy=True)
+    rows = len(np.atleast_2d(clip))
+    _got, recs = _records_of(lambda: sia.recognize_clip(clip), monkeypatch)
+    (dedup,) = [r for r in recs if r.name == "match.dedup"]
+    assert dedup.attrs == {
+        "rows": rows,
+        "query_capacity": rows * (cfg.fan_value - 1) * cfg.peak_capacity}
+    assert dedup.attrs["query_capacity"] == fps[0].hi.numel()
+    assert len(reasons) == 1 and reasons[0] in (None, "undecided")
+    assert all(r.attrs["reason"] == "undecided" for r in recs
+               if r.name in ("sia.rematch", "sia.handoff"))

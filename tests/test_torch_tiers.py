@@ -52,7 +52,8 @@ def _clip(songs, k, secs=5.0):
 
 
 def _noise():
-    """Two 12 s channels of white noise: past a stereo clip's lanes."""
+    """Two 12 s channels of white noise: past 2 x 4,096 query lanes, the
+    stereo pass's width before its query held every fingerprint lane."""
     rng = np.random.default_rng(0)
     return rng.normal(0, 8000, (2, 12 * FS)).astype(np.float32)
 
@@ -64,8 +65,10 @@ REGIMES = {
     "dense_undecided": (
         dict(TIGHT, decision_escalation=False), {}, False,
         lambda s, songs: s.recognize_clip(_clip(songs, 2))),
-    "lanes": (
+    "wide_query": (
         {}, {}, False, lambda s, songs: s.recognize_clip(_noise())),
+    "wide_query_decide": (
+        BIG, {}, False, lambda s, songs: s.recognize_clip(_noise())),
     "sparse_decided": (
         dict(BIG, match_capacity=512), {}, False,
         lambda s, songs: s.recognize_clip(_clip(songs, 3))),
@@ -156,10 +159,14 @@ PINNED = {
         ('align', 2048,
          ([3, 1], [34, 47], [954, 6], [984, 20], 1081, 6, 0, 6)),
     ],
-    'lanes': [
-        ('match_by_rank', 'dense', 16384, 0, False, False),
+    'wide_query': [
         ('match_by_rank', 'dense', 16384, 0, False, False),
         ('align', 16384,
+         ([5, 2], [-42, -169], [3, 1], [6, 3], 35, 5, 0, 1)),
+    ],
+    'wide_query_decide': [
+        ('match_by_rank', 'scan', 128, 0, True, False),
+        ('align', 128,
          ([5, 2], [-42, -169], [3, 1], [6, 3], 35, 5, 0, 1)),
     ],
     'sparse_decided': [
